@@ -1,0 +1,235 @@
+"""Circuit-level quantum-memory experiment (PyTorch port of `qcss_tpu.experiments.memory`).
+
+Hold a logical |0̄⟩ (or |+̄⟩) for R rounds, each round running the actual
+syndrome-extraction circuit (one ancilla per check, CNOT fan-in, ancilla
+measurement + reset) under circuit-level Pauli noise, then read the data
+out and decode.
+
+What this slice ports is the fused device path: Pauli-frame sampling
+(``engine='frames'``), detector assembly, union-find on the device
+(``decoder='device-dem'`` on the circuit-level DEM graph, ``'device-uf'``
+on the phenomenological spacetime graph) and failure counting, with only
+two scalars read back by the host. The tableau engine and the host and
+LUT decoders raise `NotImplementedError` naming the ROADMAP.md item that
+brings them.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from qcss_tpu_torch.circuits.ir import Circuit
+from qcss_tpu_torch.decode.spacetime import detector_history
+from qcss_tpu_torch.ops import gf2_torch
+from qcss_tpu_torch.sim import frame as fr
+from qcss_tpu_torch.sim import noise as noise_mod
+
+
+def z_extraction_circuit(code, data_offset: int = 0, anc_offset: int | None = None,
+                         checks: np.ndarray | None = None) -> Circuit:
+    """One round of Z-check syndrome extraction: CNOT(data_j -> anc_i) for
+    every 1 in row i of the Z-check matrix (ancilla i measures stabilizer
+    Z-row i when read in the Z basis after the CNOT fan-in).
+
+    ``checks`` defaults to the standard-form matrix (LUT decoders key on
+    it); the union-find path passes ``code.raw_parity_check_c2`` because
+    matching needs the local, pre-row-reduction stabilizers."""
+    checks = code.parity_check_c2 if checks is None else np.asarray(checks)
+    n = code.n
+    anc_offset = n if anc_offset is None else anc_offset
+    circ = Circuit()
+    for i in range(checks.shape[0]):
+        for j in np.nonzero(checks[i])[0]:
+            circ.cnot(data_offset + int(j), anc_offset + i)
+    return circ
+
+
+def x_extraction_circuit(code, data_offset: int = 0, anc_offset: int | None = None,
+                         checks: np.ndarray | None = None) -> Circuit:
+    """One round of X-check syndrome extraction, the mirror of
+    `z_extraction_circuit`: H(anc_i); CNOT(anc_i -> data_j) fan-out;
+    H(anc_i) — ancilla i then Z-measures stabilizer X-row i. The CNOT
+    order matches `decode.dem.extraction_gate_list` (Z errors on data
+    propagate target→control into the ancilla with the same incidence and
+    timing structure as X errors do in the Z-sector circuit, so the DEM
+    enumeration applies unchanged)."""
+    checks = code.parity_check_c1 if checks is None else np.asarray(checks)
+    n = code.n
+    anc_offset = n if anc_offset is None else anc_offset
+    circ = Circuit()
+    for i in range(checks.shape[0]):
+        circ.h(anc_offset + i)
+    for i in range(checks.shape[0]):
+        for j in np.nonzero(checks[i])[0]:
+            circ.cnot(anc_offset + i, data_offset + int(j))
+    for i in range(checks.shape[0]):
+        circ.h(anc_offset + i)
+    return circ
+
+
+def _memory_circuit_frames(generator, batch, rounds, code, noise,
+                           extract_arrays, n_anc, final_arrays=None,
+                           extract_comp=None, device="cpu"):
+    """Pauli-frame sampling of R noisy extraction rounds and a perfect
+    final readout. The noiseless reference is deterministic (every
+    ancilla measures a stabilizer of the prepared eigenstate), so only
+    fault frames propagate. Per round the generator is drawn in the order
+    circuit noise, measurement flips, reset flips. ``extract_comp`` (the
+    matrix form) and the per-gate engine consume it identically.
+    Returns (syns [R, B, n_anc], word [B, n]) uint8."""
+    n = code.n
+    anc = torch.arange(n, n + n_anc, device=device)
+    data = torch.arange(n, device=device)
+    f = fr.zero_frames(batch, n + n_anc, device)
+    syns = []
+    for _ in range(rounds):  # the reference's lax.scan over rounds
+        if extract_comp is not None:
+            f = fr.run_compiled_noisy(f, extract_comp, noise, generator)
+        else:
+            f = fr.run_arrays_noisy(f, *extract_arrays, noise, generator)
+        f, syn = fr.measure_deviations(f, anc, generator, noise.p_meas)
+        f = fr.reset_qubits(f, anc, generator, noise.p_reset)
+        syns.append(syn)
+    if final_arrays is not None:
+        # noiseless basis rotation before the perfect readout
+        # (transversal H for an X-basis memory)
+        f = fr.propagate_arrays(f, *final_arrays)
+    _, word = fr.measure_deviations(f, data)
+    return torch.stack(syns), word
+
+
+def _memory_fused_device(generator, batch, rounds, code, noise,
+                         extract_arrays, n_anc, decode_fn, log_row, raw_t,
+                         final_arrays=None, extract_comp=None,
+                         device="cpu"):
+    """Sample AND decode on the device: circuit sampling, detector
+    assembly, batched union-find and failure counting. Returns two
+    device scalars (failures, all-converged)."""
+    syns, word = _memory_circuit_frames(
+        generator, batch, rounds, code, noise, extract_arrays, n_anc=n_anc,
+        final_arrays=final_arrays, extract_comp=extract_comp, device=device)
+    final_syn = gf2_torch.syndromes_dense(word, raw_t)
+    dets = detector_history(syns, final_syn)
+    obs, conv = decode_fn(dets)
+    outcome = (word.to(torch.int32) * log_row.to(torch.int32)).sum(dim=-1) & 1
+    fails = (outcome ^ (obs & 1)).to(torch.int32)
+    return fails.sum(), conv.all()
+
+
+_FUSED_DECODERS = ("device-uf", "device-dem")
+_NOT_PORTED = {
+    "vote": "queue 1, slice 1 (decode/lut.py, decode/multiround.py)",
+    "difference": "queue 1, slice 1 (decode/lut.py, decode/multiround.py)",
+    "stlut": "queue 1, slice 1 (decode/lut.py, the spacetime LUT decode)",
+    "uf": "queue 1, slice 3 (host decoders: UFDecoder)",
+    "dem": "queue 1, slice 3 (host decoders: UFDecoder)",
+    "mwpm": "queue 1, slice 3 (host decoders: MWPMDecoder)",
+    "dem-mwpm": "queue 1, slice 3 (host decoders: MWPMDecoder)",
+}
+
+
+def memory_experiment(code, *, rounds: int, noise: noise_mod.NoiseModel,
+                      basis: str = "z",
+                      batch: int = 1 << 12, seed: int = 0,
+                      decoder: str = "vote",
+                      stlut_max_weight: int = 4,
+                      n_threads: int | None = None,
+                      engine: str = "tableau",
+                      device="cpu") -> dict[str, float]:
+    """Run the logical memory experiment in the given basis, sampling and
+    decoding on ``device``.
+
+    basis='z': hold |0̄⟩, extract Z checks, decode X data errors.
+    basis='x': the mirror — hold |+̄⟩, extract X checks via H-sandwich
+    ancillas (`x_extraction_circuit`), decode Z data errors, read out X̄
+    after a noiseless transversal H.
+
+    Ported: ``engine='frames'`` with ``decoder='device-dem'`` or
+    ``'device-uf'``. The randomness is a `torch.Generator` on ``device``
+    seeded with ``seed``. Raises RuntimeError if a shot did not converge.
+    """
+    if noise.p_idle:
+        raise ValueError(
+            "memory_experiment does not model idle noise (p_idle would be "
+            "silently ignored)")
+    if decoder not in _FUSED_DECODERS and decoder not in _NOT_PORTED:
+        raise ValueError(f"unknown decoder {decoder!r}")
+    if engine not in ("tableau", "frames"):
+        raise ValueError(f"unknown engine {engine!r}")
+    if basis not in ("z", "x"):
+        raise ValueError(f"unknown basis {basis!r}")
+    if decoder == "vote" and rounds % 2 == 0:
+        raise ValueError("rounds must be odd for the temporal vote")
+    if engine != "frames":
+        raise NotImplementedError(
+            "the tableau engine is not ported yet (ROADMAP.md, queue 1, "
+            "slice 6: sim/tableau.py); use engine='frames'")
+    if decoder not in _FUSED_DECODERS:
+        raise NotImplementedError(
+            f"decoder {decoder!r} is not ported yet (ROADMAP.md, "
+            f"{_NOT_PORTED[decoder]}); use 'device-dem' or 'device-uf'")
+    from qcss_tpu_torch.decode.device_uf import make_obs_decoder
+
+    device = torch.device(device)
+    raw = (code.raw_parity_check_c2 if basis == "z"
+           else code.raw_parity_check_c1)
+    logicals = (code.z_operator_matrix() if basis == "z"
+                else code.x_operator_matrix())
+    ext_fn = z_extraction_circuit if basis == "z" else x_extraction_circuit
+    final_arrays = None
+    if basis == "x":
+        fin = Circuit()
+        for q in range(code.n):
+            fin.h(q)
+        final_arrays = fin.to_arrays()
+    extract_arrays = ext_fn(code, checks=raw).to_arrays()
+    if decoder == "device-dem":
+        from qcss_tpu_torch.decode.dem import (
+            circuit_level_graph,
+            extraction_gate_list,
+        )
+
+        graph = circuit_level_graph(
+            raw, extraction_gate_list(code, raw), rounds,
+            p_gate2=noise.p_gate2, p_meas=noise.p_meas,
+            p_reset=noise.p_reset, logicals=logicals,
+            rate2=noise.pauli2,
+        )
+    else:
+        from qcss_tpu_torch.decode.uf import spacetime_graph
+
+        graph = spacetime_graph(raw, logicals, rounds)
+    decode_fn = make_obs_decoder(graph, device=device)
+    extract_comp = fr.maybe_compile(extract_arrays, code.n + raw.shape[0])
+    if extract_comp is not None:
+        extract_comp = extract_comp.to(device)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    fails, conv = _memory_fused_device(
+        generator, batch, rounds, code, noise, extract_arrays,
+        n_anc=raw.shape[0], decode_fn=decode_fn,
+        log_row=torch.as_tensor(np.asarray(logicals[0]), device=device),
+        raw_t=torch.as_tensor(np.asarray(raw, np.uint8), device=device),
+        final_arrays=final_arrays, extract_comp=extract_comp, device=device)
+    if not bool(conv):
+        raise RuntimeError("device union-find hit its growth cap")
+    return {
+        "logical_fail": int(fails) / batch,
+        # observable-only device decoders never materialize corrections,
+        # so no residual-syndrome accounting exists for them
+        "residual_syndrome": float("nan"),
+        "rounds": rounds,
+        "samples": batch,
+        "decoder": decoder,
+        "basis": basis,
+    }
+
+
+def z_memory_experiment(code, **kwargs) -> dict[str, float]:
+    """Back-compat alias: `memory_experiment(basis='z')`."""
+    return memory_experiment(code, basis="z", **kwargs)
+
+
+def x_memory_experiment(code, **kwargs) -> dict[str, float]:
+    """The |+̄⟩ (X-basis) memory: `memory_experiment(basis='x')`."""
+    return memory_experiment(code, basis="x", **kwargs)

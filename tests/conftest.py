@@ -40,3 +40,10 @@ def _clear_jax_caches_between_modules():
     """
     yield
     jax.clear_caches()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: runs a CUDA kernel of qcss_tpu_torch; skips without a CUDA "
+        "device")
