@@ -9,7 +9,12 @@ with a plain PyTorch version beside it that runs for CPU tensors.
 Ported so far: the circuit-level surface-code memory experiment with
 sampling and decoding fused on the device
 (`experiments.memory.memory_experiment(engine='frames',
-decoder='device-dem')`). This package never imports jax or qcss_tpu.
+decoder='device-dem')`, and the LUT decoders 'vote', 'difference' and
+'stlut'), and the code-capacity Monte Carlo
+(`decode.logical_error_rate`, `decode.mc_decode_rounds`) over the packed
+GF(2) kernels (`ops.cuda_gf2`). Entry points run on the card unless the
+caller passes ``device='cpu'``. This package never imports jax or
+qcss_tpu.
 """
 
 from qcss_tpu_torch.errors import (

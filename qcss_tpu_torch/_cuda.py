@@ -20,11 +20,12 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
-SOURCES = ("uf_stencil_full.cu", "sparse_growth.cu")
+SOURCES = ("uf_stencil_full.cu", "sparse_growth.cu", "gf2_packed.cu")
 HEADERS = ("block_reduce.cuh",)
 BUILD_ROOT = _PKG.parent / "build" / "cuda"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-shared",)
 
 _lib = None
 #: nvcc's output (ptxas register and shared-memory report) of the build
@@ -53,29 +54,41 @@ def library_path() -> Path:
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return BUILD_ROOT / h.hexdigest()[:16] / "libqcss_kernels.so"
 
 
 def build() -> Path:
     """Compile the kernels unless this exact build exists; returns the
-    library's path."""
+    library's path. Each source compiles in its own nvcc process, all at
+    once, and one more nvcc links the objects."""
     global build_log
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-           *(str(CSRC / name) for name in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    build_log = proc.stdout + proc.stderr
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmpdir:
+        objs = [str(Path(tmpdir) / (name + ".o")) for name in SOURCES]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / name)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for name, obj in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [(name, p.returncode, log) for name, p, log
+                  in zip(SOURCES, procs, logs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{name} ({rc}):\n{log}" for name, rc, log in failed))
+        tmp = str(Path(tmpdir) / out.name)
+        proc = subprocess.run([nvcc, *LINK_FLAGS, "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}):\n"
+                f"{proc.stdout}{proc.stderr}")
+        build_log = "".join(logs)
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     return out
 
 
@@ -84,15 +97,38 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.qcss_uf_stencil_full.argtypes = [
             ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr]
         lib.qcss_uf_stencil_full.restype = i32
         lib.qcss_sparse_growth.argtypes = [
             ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr, ptr, ptr]
         lib.qcss_sparse_growth.restype = i32
+        lib.qcss_syndromes_packed.argtypes = [
+            ptr, ptr, i64, i32, i32, ptr, ptr]
+        lib.qcss_syndromes_packed.restype = i32
+        lib.qcss_syndromes_packed_t.argtypes = [
+            ptr, ptr, i64, i32, i32, ptr, ptr]
+        lib.qcss_syndromes_packed_t.restype = i32
+        lib.qcss_decode_residual_packed.argtypes = [
+            ptr, ptr, ptr, i64, i32, i32, ptr, ptr]
+        lib.qcss_decode_residual_packed.restype = i32
         _lib = lib
     return _lib
+
+
+def resolve_device(device) -> "torch.device":
+    """``device`` as a `torch.device`. The port's entry points default to
+    the card; asked for CUDA where there is none, this raises rather than
+    run on the CPU."""
+    import torch
+
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: qcss_tpu_torch runs on the card by default; "
+            "pass device='cpu' to run the plain PyTorch versions")
+    return device
 
 
 def check(err: int, name: str) -> None:

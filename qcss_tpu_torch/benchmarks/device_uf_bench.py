@@ -21,6 +21,7 @@ import time
 import numpy as np
 import torch
 
+from qcss_tpu_torch._cuda import resolve_device
 from qcss_tpu_torch.codes.families import rotated_surface
 from qcss_tpu_torch.decode.device_uf import make_obs_decoder
 from qcss_tpu_torch.decode.spacetime import detector_history
@@ -32,8 +33,8 @@ from qcss_tpu_torch.sim.noise import NoiseModel
 
 
 def build_pipeline(code, rounds, noise, graph_kind: str,
-                   decoder: str = "dense", d_max: int = 48, device="cpu"):
-    device = torch.device(device)
+                   decoder: str = "dense", d_max: int = 48, device="cuda"):
+    device = resolve_device(device)
     raw = code.raw_parity_check_c2
     logicals = code.z_operator_matrix()
     if graph_kind == "dem":
@@ -79,7 +80,7 @@ def build_pipeline(code, rounds, noise, graph_kind: str,
     def sample(generator, batch, rounds):
         return M._memory_circuit_frames(
             generator, batch, rounds, code, noise, ext, n_anc=raw.shape[0],
-            extract_comp=comp, device=device)
+            extract_comp=comp)
 
     def dets_of(syns, word):
         final = gf2_torch.syndromes_dense(word, raw_t)

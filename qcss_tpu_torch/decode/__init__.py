@@ -1,28 +1,59 @@
-"""Matching graphs and device union-find decoders: the circuit-level DEM
-(`dem`), the dense stencil decoder (`device_uf`) and the defect-granular
-sparse decoder (`device_sparse`)."""
+"""Decoders of the port: syndrome-table decoding (`lut`), the code-capacity
+Monte Carlo (`montecarlo`, `multiround`, `sweep`), the spacetime LUT
+(`spacetime`), the circuit-level DEM (`dem`), the dense stencil decoder
+(`device_uf`) and the defect-granular sparse decoder (`device_sparse`)."""
 
+from qcss_tpu_torch.decode.lut import (
+    correct_errors,
+    decode_corrections,
+    detect_errors,
+)
+from qcss_tpu_torch.decode.montecarlo import (
+    logical_error_rate,
+    mc_decode_rounds,
+    mc_decode_step,
+    sample_depolarizing,
+)
+from qcss_tpu_torch.decode.sweep import error_rate_curve
+from qcss_tpu_torch.decode.multiround import multiround_error_rate
 from qcss_tpu_torch.decode.dem import circuit_level_graph, extraction_gate_list
 from qcss_tpu_torch.decode.device_sparse import (
     make_hybrid_obs_decoder,
     make_sparse_obs_decoder,
 )
 from qcss_tpu_torch.decode.device_uf import make_obs_decoder
-from qcss_tpu_torch.decode.spacetime import detector_history
+from qcss_tpu_torch.decode.spacetime import (
+    detector_history,
+    spacetime_check_matrix,
+    spacetime_correction_lut,
+)
 from qcss_tpu_torch.decode.uf import (
     MatchingGraph,
     graph_from_checks,
     spacetime_graph,
 )
+from qcss_tpu_torch.decode import classical
 
 __all__ = [
     "MatchingGraph",
     "circuit_level_graph",
+    "classical",
+    "correct_errors",
+    "decode_corrections",
+    "detect_errors",
     "detector_history",
+    "error_rate_curve",
     "extraction_gate_list",
     "graph_from_checks",
+    "logical_error_rate",
     "make_hybrid_obs_decoder",
     "make_obs_decoder",
     "make_sparse_obs_decoder",
+    "mc_decode_rounds",
+    "mc_decode_step",
+    "multiround_error_rate",
+    "sample_depolarizing",
+    "spacetime_check_matrix",
+    "spacetime_correction_lut",
     "spacetime_graph",
 ]

@@ -37,6 +37,7 @@ from functools import partial
 import numpy as np
 import torch
 
+from qcss_tpu_torch._cuda import resolve_device
 from qcss_tpu_torch.decode.uf import MatchingGraph
 from qcss_tpu_torch.ops.gf2_torch import xor_reduce
 
@@ -318,8 +319,10 @@ def _growth_core(dm, bdm, phim, bsm, valid, *, max_events):
 
 def sparse_decoder_from_tables(tables: SparseTables, *, d_max: int = 32,
                                max_events: int | None = None,
-                               device="cpu"):
-    """``decode(detectors) -> (obs, converged)`` over given tables."""
+                               device="cuda"):
+    """``decode(detectors) -> (obs, converged)`` over given tables, placed
+    on ``device`` (the card by default)."""
+    device = resolve_device(device)
     d_max = min(d_max, tables.num_nodes)  # compaction cap on tiny graphs
     if max_events is None:
         max_events = d_max * (d_max + 1) // 2 + 4
@@ -328,7 +331,7 @@ def sparse_decoder_from_tables(tables: SparseTables, *, d_max: int = 32,
 
 
 def make_sparse_obs_decoder(graph: MatchingGraph, *, d_max: int = 32,
-                            max_events: int | None = None, device="cpu"):
+                            max_events: int | None = None, device="cuda"):
     """A ``decode(detectors) -> (obs, converged)`` defect-granular decoder
     (same contract as `device_uf.make_obs_decoder`), or None when the
     graph does not admit the sparse path. Shots with more than ``d_max``
@@ -343,7 +346,7 @@ def make_sparse_obs_decoder(graph: MatchingGraph, *, d_max: int = 32,
 
 
 def make_hybrid_obs_decoder(graph: MatchingGraph, *, d_max: int = 32,
-                            device="cpu", **dense_kwargs):
+                            device="cuda", **dense_kwargs):
     """Sparse decode with a dense-decoder escape hatch: the defect-granular
     path always runs; iff some shot did not converge there (overflow /
     stuck component), the dense decoder runs too and its result is

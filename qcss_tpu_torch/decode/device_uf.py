@@ -36,6 +36,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from qcss_tpu_torch._cuda import resolve_device
 from qcss_tpu_torch.decode.uf import MatchingGraph
 from qcss_tpu_torch.ops.gf2_torch import xor_reduce
 
@@ -622,9 +623,10 @@ def make_obs_decoder(graph: MatchingGraph,
                      max_growth_rounds: int | None = None,
                      prop_cap: int | None = None,
                      act_cap: int | None = None,
-                     device="cpu"):
+                     device="cuda"):
     """A ``decode(detectors) -> (obs, converged)`` closure over the given
-    graph, its tensors placed on ``device``."""
+    graph, its tensors placed on ``device`` (the card by default)."""
+    device = resolve_device(device)
     dg = build_device_graph(graph, max_growth_rounds,
                             prop_cap=prop_cap, act_cap=act_cap)
     return partial(decode_obs, dg.to(device))

@@ -5,13 +5,20 @@ syndrome-extraction circuit (one ancilla per check, CNOT fan-in, ancilla
 measurement + reset) under circuit-level Pauli noise, then read the data
 out and decode.
 
-What this slice ports is the fused device path: Pauli-frame sampling
-(``engine='frames'``), detector assembly, union-find on the device
-(``decoder='device-dem'`` on the circuit-level DEM graph, ``'device-uf'``
-on the phenomenological spacetime graph) and failure counting, with only
-two scalars read back by the host. The tableau engine and the host and
-LUT decoders raise `NotImplementedError` naming the ROADMAP.md item that
-brings them.
+Ported: Pauli-frame sampling (``engine='frames'``) with
+
+* the fused device decoders: detector assembly, union-find on the device
+  (``decoder='device-dem'`` on the circuit-level DEM graph,
+  ``'device-uf'`` on the phenomenological spacetime graph) and failure
+  counting, with only two scalars read back by the host;
+* the LUT decoders on the device: ``'vote'`` (temporal majority per
+  syndrome bit, one LUT decode), ``'difference'`` (each round's new
+  detection events decoded independently, corrections XORed) and
+  ``'stlut'`` (minimum-weight decode over the full spacetime fault set,
+  one gather), which also count the residual syndromes.
+
+The tableau engine and the host decoders raise `NotImplementedError`
+naming the ROADMAP.md item that brings them.
 """
 
 from __future__ import annotations
@@ -19,8 +26,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from qcss_tpu_torch._cuda import resolve_device
 from qcss_tpu_torch.circuits.ir import Circuit
-from qcss_tpu_torch.decode.spacetime import detector_history
+from qcss_tpu_torch.decode.lut import decode_corrections
+from qcss_tpu_torch.decode.multiround import vote_syndromes
+from qcss_tpu_torch.decode.spacetime import (
+    detector_history,
+    spacetime_correction_lut,
+)
 from qcss_tpu_torch.ops import gf2_torch
 from qcss_tpu_torch.sim import frame as fr
 from qcss_tpu_torch.sim import noise as noise_mod
@@ -70,15 +83,16 @@ def x_extraction_circuit(code, data_offset: int = 0, anc_offset: int | None = No
 
 def _memory_circuit_frames(generator, batch, rounds, code, noise,
                            extract_arrays, n_anc, final_arrays=None,
-                           extract_comp=None, device="cpu"):
+                           extract_comp=None):
     """Pauli-frame sampling of R noisy extraction rounds and a perfect
-    final readout. The noiseless reference is deterministic (every
-    ancilla measures a stabilizer of the prepared eigenstate), so only
-    fault frames propagate. Per round the generator is drawn in the order
-    circuit noise, measurement flips, reset flips. ``extract_comp`` (the
-    matrix form) and the per-gate engine consume it identically.
-    Returns (syns [R, B, n_anc], word [B, n]) uint8."""
+    final readout, on the generator's device. The noiseless reference is
+    deterministic (every ancilla measures a stabilizer of the prepared
+    eigenstate), so only fault frames propagate. Per round the generator
+    is drawn in the order circuit noise, measurement flips, reset flips.
+    ``extract_comp`` (the matrix form) and the per-gate engine consume it
+    identically. Returns (syns [R, B, n_anc], word [B, n]) uint8."""
     n = code.n
+    device = generator.device
     anc = torch.arange(n, n + n_anc, device=device)
     data = torch.arange(n, device=device)
     f = fr.zero_frames(batch, n + n_anc, device)
@@ -101,14 +115,13 @@ def _memory_circuit_frames(generator, batch, rounds, code, noise,
 
 def _memory_fused_device(generator, batch, rounds, code, noise,
                          extract_arrays, n_anc, decode_fn, log_row, raw_t,
-                         final_arrays=None, extract_comp=None,
-                         device="cpu"):
+                         final_arrays=None, extract_comp=None):
     """Sample AND decode on the device: circuit sampling, detector
     assembly, batched union-find and failure counting. Returns two
     device scalars (failures, all-converged)."""
     syns, word = _memory_circuit_frames(
         generator, batch, rounds, code, noise, extract_arrays, n_anc=n_anc,
-        final_arrays=final_arrays, extract_comp=extract_comp, device=device)
+        final_arrays=final_arrays, extract_comp=extract_comp)
     final_syn = gf2_torch.syndromes_dense(word, raw_t)
     dets = detector_history(syns, final_syn)
     obs, conv = decode_fn(dets)
@@ -117,11 +130,63 @@ def _memory_fused_device(generator, batch, rounds, code, noise,
     return fails.sum(), conv.all()
 
 
+def _decode_vote(syns, word, lut, h_std):
+    """Temporal-majority decoding: vote each syndrome bit across rounds,
+    one LUT decode. Sound for at most one data error over the experiment."""
+    return decode_corrections(vote_syndromes(syns), lut)
+
+
+def _decode_difference(syns, word, lut, h_std):
+    """Difference-syndrome decoding: decode each round's NEW detection
+    events (syn[r] ^ syn[r-1]) independently and XOR the corrections.
+
+    A data error arising in round r appears in exactly one difference and
+    is corrected once; a measurement error at round r flips differences r
+    and r+1, so its two (identical, deterministic-LUT) corrections cancel
+    under XOR. The final readout supplies the exact end syndrome, closing
+    the last difference window."""
+    prev = torch.zeros_like(syns[0])
+    corr = torch.zeros_like(word)
+    for r in range(syns.shape[0]):
+        corr = corr ^ decode_corrections(syns[r] ^ prev, lut)
+        prev = syns[r]
+    final_syn = gf2_torch.syndromes_dense(word, h_std)
+    return corr ^ decode_corrections(final_syn ^ prev, lut)
+
+
+def _count_failures(word, corr, dev, basis: str = "z"):
+    """Logical failures and shots with a residual syndrome, as device
+    scalars. ``dev`` holds the code's tensors on the word's device. For
+    basis='x' the readout word is the post-H (X-basis) data word, so the
+    observable is X̄ and the residual check matrix is the C1 sector."""
+    corrected = word ^ corr
+    log_row = dev.logical_z[0] if basis == "z" else dev.logical_x[0]
+    h_std = dev.h2 if basis == "z" else dev.h1
+    outcome = (corrected.to(torch.int32) * log_row.to(torch.int32)
+               ).sum(dim=-1) & 1
+    resid = gf2_torch.syndromes_dense(corrected, h_std)
+    return {"logical_fail": outcome.sum(dtype=torch.int64),
+            "residual_syndrome": (resid == 1).any(dim=-1)
+            .sum(dtype=torch.int64)}
+
+
+def _decode_counts(syns, word, dev, decoder, stlut=None, basis="z"):
+    """The LUT decoders on sampled (syns [R, B, r], word [B, n]): the
+    decode half of the reference's `_memory_body`."""
+    h_std = dev.h2 if basis == "z" else dev.h1
+    if decoder == "stlut":
+        dets = detector_history(syns, gf2_torch.syndromes_dense(word, h_std))
+        corr = stlut[gf2_torch.bits_to_index(dets).to(torch.int64)]
+    else:
+        lut = dev.lut_c2 if basis == "z" else dev.lut_c1
+        corr = {"vote": _decode_vote, "difference": _decode_difference}[
+            decoder](syns, word, lut, h_std)
+    return _count_failures(word, corr, dev, basis)
+
+
+_LUT_DECODERS = ("vote", "difference", "stlut")
 _FUSED_DECODERS = ("device-uf", "device-dem")
 _NOT_PORTED = {
-    "vote": "queue 1, slice 1 (decode/lut.py, decode/multiround.py)",
-    "difference": "queue 1, slice 1 (decode/lut.py, decode/multiround.py)",
-    "stlut": "queue 1, slice 1 (decode/lut.py, the spacetime LUT decode)",
     "uf": "queue 1, slice 3 (host decoders: UFDecoder)",
     "dem": "queue 1, slice 3 (host decoders: UFDecoder)",
     "mwpm": "queue 1, slice 3 (host decoders: MWPMDecoder)",
@@ -136,24 +201,26 @@ def memory_experiment(code, *, rounds: int, noise: noise_mod.NoiseModel,
                       stlut_max_weight: int = 4,
                       n_threads: int | None = None,
                       engine: str = "tableau",
-                      device="cpu") -> dict[str, float]:
+                      device="cuda") -> dict[str, float]:
     """Run the logical memory experiment in the given basis, sampling and
-    decoding on ``device``.
+    decoding on ``device`` (the card unless the caller asks for the CPU).
 
     basis='z': hold |0̄⟩, extract Z checks, decode X data errors.
     basis='x': the mirror — hold |+̄⟩, extract X checks via H-sandwich
     ancillas (`x_extraction_circuit`), decode Z data errors, read out X̄
     after a noiseless transversal H.
 
-    Ported: ``engine='frames'`` with ``decoder='device-dem'`` or
-    ``'device-uf'``. The randomness is a `torch.Generator` on ``device``
-    seeded with ``seed``. Raises RuntimeError if a shot did not converge.
+    Ported: ``engine='frames'`` with ``decoder='device-dem'``,
+    ``'device-uf'``, ``'vote'``, ``'difference'`` or ``'stlut'``. The
+    randomness is a `torch.Generator` on ``device`` seeded with ``seed``.
+    Raises RuntimeError if a union-find shot did not converge.
     """
     if noise.p_idle:
         raise ValueError(
             "memory_experiment does not model idle noise (p_idle would be "
             "silently ignored)")
-    if decoder not in _FUSED_DECODERS and decoder not in _NOT_PORTED:
+    if decoder not in _FUSED_DECODERS + _LUT_DECODERS \
+            and decoder not in _NOT_PORTED:
         raise ValueError(f"unknown decoder {decoder!r}")
     if engine not in ("tableau", "frames"):
         raise ValueError(f"unknown engine {engine!r}")
@@ -165,17 +232,12 @@ def memory_experiment(code, *, rounds: int, noise: noise_mod.NoiseModel,
         raise NotImplementedError(
             "the tableau engine is not ported yet (ROADMAP.md, queue 1, "
             "slice 6: sim/tableau.py); use engine='frames'")
-    if decoder not in _FUSED_DECODERS:
+    if decoder in _NOT_PORTED:
         raise NotImplementedError(
             f"decoder {decoder!r} is not ported yet (ROADMAP.md, "
-            f"{_NOT_PORTED[decoder]}); use 'device-dem' or 'device-uf'")
-    from qcss_tpu_torch.decode.device_uf import make_obs_decoder
-
-    device = torch.device(device)
-    raw = (code.raw_parity_check_c2 if basis == "z"
-           else code.raw_parity_check_c1)
-    logicals = (code.z_operator_matrix() if basis == "z"
-                else code.x_operator_matrix())
+            f"{_NOT_PORTED[decoder]}); use 'device-dem', 'device-uf' or a "
+            f"LUT decoder")
+    device = resolve_device(device)
     ext_fn = z_extraction_circuit if basis == "z" else x_extraction_circuit
     final_arrays = None
     if basis == "x":
@@ -183,6 +245,32 @@ def memory_experiment(code, *, rounds: int, noise: noise_mod.NoiseModel,
         for q in range(code.n):
             fin.h(q)
         final_arrays = fin.to_arrays()
+    generator = torch.Generator(device=device).manual_seed(seed)
+    run = _memory_lut if decoder in _LUT_DECODERS else _memory_union_find
+    fails, resid = run(code, rounds, noise, basis, batch, decoder,
+                       stlut_max_weight, ext_fn, final_arrays, generator)
+    return {
+        "logical_fail": fails / batch,
+        "residual_syndrome": resid / batch,
+        "rounds": rounds,
+        "samples": batch,
+        "decoder": decoder,
+        "basis": basis,
+    }
+
+
+def _memory_union_find(code, rounds, noise, basis, batch, decoder,
+                       stlut_max_weight, ext_fn, final_arrays, generator):
+    """The fused device decoders on the generator's device: (failures,
+    NaN). Observable-only decoders never materialize corrections, so no
+    residual-syndrome accounting exists for them."""
+    from qcss_tpu_torch.decode.device_uf import make_obs_decoder
+
+    device = generator.device
+    raw = (code.raw_parity_check_c2 if basis == "z"
+           else code.raw_parity_check_c1)
+    logicals = (code.z_operator_matrix() if basis == "z"
+                else code.x_operator_matrix())
     extract_arrays = ext_fn(code, checks=raw).to_arrays()
     if decoder == "device-dem":
         from qcss_tpu_torch.decode.dem import (
@@ -204,25 +292,46 @@ def memory_experiment(code, *, rounds: int, noise: noise_mod.NoiseModel,
     extract_comp = fr.maybe_compile(extract_arrays, code.n + raw.shape[0])
     if extract_comp is not None:
         extract_comp = extract_comp.to(device)
-    generator = torch.Generator(device=device).manual_seed(seed)
     fails, conv = _memory_fused_device(
         generator, batch, rounds, code, noise, extract_arrays,
         n_anc=raw.shape[0], decode_fn=decode_fn,
         log_row=torch.as_tensor(np.asarray(logicals[0]), device=device),
         raw_t=torch.as_tensor(np.asarray(raw, np.uint8), device=device),
-        final_arrays=final_arrays, extract_comp=extract_comp, device=device)
+        final_arrays=final_arrays, extract_comp=extract_comp)
     if not bool(conv):
         raise RuntimeError("device union-find hit its growth cap")
-    return {
-        "logical_fail": int(fails) / batch,
-        # observable-only device decoders never materialize corrections,
-        # so no residual-syndrome accounting exists for them
-        "residual_syndrome": float("nan"),
-        "rounds": rounds,
-        "samples": batch,
-        "decoder": decoder,
-        "basis": basis,
-    }
+    return int(fails), float("nan")
+
+
+def _memory_lut(code, rounds, noise, basis, batch, decoder,
+                stlut_max_weight, ext_fn, final_arrays, generator):
+    """The LUT decoders on the generator's device, over the standard-form
+    checks (the LUTs key on them): (failures, shots with a residual
+    syndrome), read back together."""
+    device = generator.device
+    dev = code.device.to(device)
+    std_checks = code.parity_check_c2 if basis == "z" else code.parity_check_c1
+    lut = dev.lut_c2 if basis == "z" else dev.lut_c1
+    if decoder in ("vote", "difference") and lut is None:
+        raise ValueError("code has no LUT for this sector; pass "
+                         "max_table_weight")
+    stlut = None
+    if decoder == "stlut":
+        stlut = torch.as_tensor(spacetime_correction_lut(
+            std_checks, rounds, stlut_max_weight), device=device)
+    extract_arrays = ext_fn(code).to_arrays()
+    extract_comp = fr.maybe_compile(extract_arrays,
+                                    code.n + std_checks.shape[0])
+    if extract_comp is not None:
+        extract_comp = extract_comp.to(device)
+    syns, word = _memory_circuit_frames(
+        generator, batch, rounds, code, noise, extract_arrays,
+        n_anc=std_checks.shape[0], final_arrays=final_arrays,
+        extract_comp=extract_comp)
+    counts = _decode_counts(syns, word, dev, decoder, stlut, basis)
+    fails, resid = torch.stack(
+        [counts["logical_fail"], counts["residual_syndrome"]]).tolist()
+    return fails, resid
 
 
 def z_memory_experiment(code, **kwargs) -> dict[str, float]:

@@ -30,6 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from qcss_tpu_torch._cuda import resolve_device
 from qcss_tpu_torch.circuits.ir import OPCODES
 from qcss_tpu_torch.ops.gf2_torch import mod2_matmul
 from qcss_tpu_torch.sim import noise as noise_mod
@@ -53,8 +54,10 @@ class Frames(NamedTuple):
         return self.x.shape[1]
 
 
-def zero_frames(batch: int, n: int, device="cpu") -> Frames:
-    z = torch.zeros((batch, n), dtype=torch.uint8, device=device)
+def zero_frames(batch: int, n: int, device="cuda") -> Frames:
+    """All-zero frames [batch, n] on ``device`` (the card by default)."""
+    z = torch.zeros((batch, n), dtype=torch.uint8,
+                    device=resolve_device(device))
     return Frames(z, z.clone())
 
 
@@ -91,14 +94,16 @@ def propagate_arrays(f: Frames, ops, q0, q1) -> Frames:
 
 
 def _sampled_fault_bits(ops, model: noise_mod.NoiseModel,
-                        generator: torch.Generator, batch: int,
-                        device="cpu") -> torch.Tensor:
+                        generator: torch.Generator,
+                        batch: int) -> torch.Tensor:
     """[B, 4G] uint8 fault bits, four per gate: (x_a, z_a, x_b, z_b).
     1q gates draw one uniform each (their last two bits stay zero); 2q
     gates draw a hit uniform and a pattern in [1, 16) whose bits 0..3 are
     (x_a, z_a, x_b, z_b) — or, when ``model.pauli2`` is set, one (B, 2)
     biased draw, one per touched qubit. The structure of the reference's
-    draws (sim/frame.py `_inject1`/`_inject2`); the numbers are torch's."""
+    draws (sim/frame.py `_inject1`/`_inject2`); the numbers are torch's,
+    drawn on the generator's device."""
+    device = generator.device
     ops = [int(o) for o in _host_ints(ops)]
     G = len(ops)
     out = torch.zeros((batch, 4 * G), dtype=torch.uint8, device=device)
@@ -146,8 +151,7 @@ def run_arrays_noisy(f: Frames, ops, q0, q1, model: noise_mod.NoiseModel,
     ops, q0, q1 = _host_ints(ops), _host_ints(q0), _host_ints(q1)
     bits = fault_bits
     if bits is None:
-        bits = _sampled_fault_bits(ops, model, generator, f.batch,
-                                   f.x.device)
+        bits = _sampled_fault_bits(ops, model, generator, f.batch)
     x, z = f.x.clone(), f.z.clone()
     for g, (op, a, b) in enumerate(zip(ops, q0, q1)):
         op, a, b = int(op), int(a), int(b)
@@ -258,8 +262,7 @@ def run_compiled_noisy(f: Frames, comp: CompiledFrameCircuit,
     if (model.p_gate1 or model.p_gate2) and comp.s is not None:
         bits = fault_bits
         if bits is None:
-            bits = _sampled_fault_bits(comp.ops, model, generator, f.batch,
-                                       f.x.device)
+            bits = _sampled_fault_bits(comp.ops, model, generator, f.batch)
         out = out ^ mod2_matmul(bits, comp.s)
     n = comp.n
     return Frames(out[:, :n].contiguous(), out[:, n:].contiguous())

@@ -123,7 +123,8 @@ def test_hybrid_on_cuda_matches_cpu(cuda):
     dets = _dets(g, 2048, 0.05, seed=3, device=cuda)
     obs_k, conv_k = tds.make_hybrid_obs_decoder(g, d_max=8,
                                                 device=cuda)(dets)
-    obs_c, conv_c = tds.make_hybrid_obs_decoder(g, d_max=8)(dets.cpu())
+    obs_c, conv_c = tds.make_hybrid_obs_decoder(g, d_max=8,
+                                                device="cpu")(dets.cpu())
     assert torch.equal(obs_k.cpu(), obs_c)
     assert torch.equal(conv_k.cpu(), conv_c)
     assert conv_k.all()
@@ -141,3 +142,94 @@ def test_memory_experiment_on_cuda(cuda):
                             batch=8192, device=cuda)
     assert device_uf_cuda.launches > before
     assert 0.0 < res["logical_fail"] < 0.05
+
+
+def _words(rng, shape):
+    """Random 32-bit words in int32 storage: about half have bit 31 set."""
+    return torch.from_numpy(rng.integers(0, 1 << 32, shape, dtype=np.uint32)
+                            .view(np.int32))
+
+
+def _packed_checks(h, device):
+    from qcss_tpu_torch.ops import gf2_torch
+
+    return gf2_torch.words32(gf2_torch.pack_bits(h)).to(device)
+
+
+@pytest.mark.parametrize("B", [1000, (1 << 20) + 3])
+@pytest.mark.parametrize("d", [3, 11])
+def test_packed_syndrome_kernels_match_plain(cuda, B, d):
+    from qcss_tpu_torch.ops import cuda_gf2
+
+    h = rotated_surface(d).parity_check_c2
+    hp = _packed_checks(h, cuda)
+    W = hp.shape[1]
+    e = _words(np.random.default_rng(B + d), (B, W)).to(cuda)
+    before = dict(cuda_gf2.launches)
+    got = cuda_gf2.syndromes_packed(e, hp)
+    got_t = cuda_gf2.syndromes_packed_t(e.T.contiguous(), hp)
+    assert cuda_gf2.launches["syndromes_packed"] == \
+        before["syndromes_packed"] + 1
+    assert cuda_gf2.launches["syndromes_packed_t"] == \
+        before["syndromes_packed_t"] + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, cuda_gf2.syndromes_packed_plain(e, hp))
+    assert torch.equal(got_t, cuda_gf2.syndromes_packed_t_plain(
+        e.T.contiguous(), hp))
+    assert torch.equal(got.cpu(), cuda_gf2.syndromes_packed(e.cpu(),
+                                                            hp.cpu()))
+
+
+@pytest.mark.parametrize("B", [1000, (1 << 20) + 3])
+@pytest.mark.parametrize("name", ["steane", "golay"])
+def test_residual_decode_kernel_matches_plain(cuda, B, name):
+    from qcss_tpu_torch.codes import families
+    from qcss_tpu_torch.ops import cuda_gf2, gf2
+
+    code = getattr(families, name)()
+    h = code.parity_check_c2
+    hp = _packed_checks(h, cuda)
+    lp = _packed_checks(gf2.correction_lut(h, code.c2_syndromes), cuda)
+    e = _words(np.random.default_rng(B), (B, hp.shape[1])).to(cuda)
+    before = cuda_gf2.launches["decode_residual_packed"]
+    got = cuda_gf2.decode_residual_packed(e, hp, lp)
+    assert cuda_gf2.launches["decode_residual_packed"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, cuda_gf2.decode_residual_packed_plain(e, hp, lp))
+
+
+def test_packed_wrappers_check_inputs(cuda):
+    from qcss_tpu_torch.ops import cuda_gf2
+
+    e = torch.zeros((8, 1), dtype=torch.int32)
+    h = torch.zeros((3, 1), dtype=torch.int32)
+    lut = torch.zeros((8, 1), dtype=torch.int32)
+    for fn, args in ((cuda_gf2.syndromes_packed_cuda, (e, h)),
+                     (cuda_gf2.syndromes_packed_t_cuda, (e.T.contiguous(),
+                                                          h)),
+                     (cuda_gf2.decode_residual_packed_cuda, (e, h, lut))):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(*args)  # a CPU tensor is refused
+        dev_args = [a.to(cuda) for a in args]
+        with pytest.raises(ValueError):
+            fn(dev_args[0].to(torch.int64), *dev_args[1:])
+    with pytest.raises(ValueError):
+        cuda_gf2.decode_residual_packed_cuda(
+            e.to(cuda), h.to(cuda), lut[:4].to(cuda))
+
+
+def test_mc_decode_rounds_on_cuda_uses_the_packed_kernels(cuda):
+    from qcss_tpu_torch.codes import families
+    from qcss_tpu_torch.decode import montecarlo
+    from qcss_tpu_torch.ops import cuda_gf2
+
+    before = dict(cuda_gf2.launches)
+    code = families.steane()
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    out = montecarlo.mc_decode_rounds(code, gen, 1 << 16, 4, 0.05)
+    assert cuda_gf2.launches["decode_residual_packed"] == \
+        before["decode_residual_packed"] + 8
+    assert cuda_gf2.launches["syndromes_packed"] == \
+        before["syndromes_packed"] + 8
+    rate = int(out["word_fail"]) / (4 << 16)
+    assert 0.02 < rate < 0.05  # Steane at p=0.05: about 0.034

@@ -70,7 +70,8 @@ def test_plain_sparse_decode_bit_identical(d_max):
     dets = _dets(gj, 2048, 0.05, seed=d_max)
     obs_j, conv_j = jds.make_sparse_obs_decoder(
         gj, d_max=d_max, backend="xla")(dets)
-    obs_t, conv_t = tds.make_sparse_obs_decoder(gt, d_max=d_max)(
+    obs_t, conv_t = tds.make_sparse_obs_decoder(gt, d_max=d_max,
+                                                device="cpu")(
         torch.as_tensor(dets))
     np.testing.assert_array_equal(obs_t.numpy(), np.asarray(obs_j))
     np.testing.assert_array_equal(conv_t.numpy(), np.asarray(conv_j))
@@ -83,7 +84,7 @@ def test_sparse_spacetime_graph_bit_identical():
     dets = _dets(gj, 1024, 0.04, seed=4)
     obs_j, conv_j = jds.make_sparse_obs_decoder(
         gj, d_max=16, backend="xla")(dets)
-    obs_t, conv_t = tds.make_sparse_obs_decoder(gt, d_max=16)(
+    obs_t, conv_t = tds.make_sparse_obs_decoder(gt, d_max=16, device="cpu")(
         torch.as_tensor(dets))
     np.testing.assert_array_equal(obs_t.numpy(), np.asarray(obs_j))
     np.testing.assert_array_equal(conv_t.numpy(), np.asarray(conv_j))
@@ -97,7 +98,7 @@ def test_tables_from_numpy_decode_like_jax():
     dets = _dets(gj, 1024, 0.1, seed=9)
     obs_j, conv_j = jds.make_sparse_obs_decoder(
         gj, d_max=8, backend="xla")(dets)
-    obs_t, conv_t = tds.sparse_decoder_from_tables(tt, d_max=8)(
+    obs_t, conv_t = tds.sparse_decoder_from_tables(tt, d_max=8, device="cpu")(
         torch.as_tensor(dets))
     np.testing.assert_array_equal(obs_t.numpy(), np.asarray(obs_j))
     np.testing.assert_array_equal(conv_t.numpy(), np.asarray(conv_j))
@@ -109,7 +110,8 @@ def test_hybrid_bit_identical(d_max, p):
     gj, gt = _graph("dem", 5)
     dets = _dets(gj, 1024, p, seed=31)
     obs_j, conv_j = jds.make_hybrid_obs_decoder(gj, d_max=d_max)(dets)
-    obs_t, conv_t = tds.make_hybrid_obs_decoder(gt, d_max=d_max)(
+    obs_t, conv_t = tds.make_hybrid_obs_decoder(gt, d_max=d_max,
+                                                device="cpu")(
         torch.as_tensor(dets))
     np.testing.assert_array_equal(obs_t.numpy(), np.asarray(obs_j))
     np.testing.assert_array_equal(conv_t.numpy(), np.asarray(conv_j))

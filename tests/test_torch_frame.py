@@ -85,7 +85,7 @@ def test_noisy_frames_bit_identical_given_fault_bits(basis, noise):
     x0 = rng.integers(0, 2, (B, n), dtype=np.uint8)
     z0 = rng.integers(0, 2, (B, n), dtype=np.uint8)
     fj = jfr.inject_flips(jfr.zero_frames(B, n), jnp.arange(n), x0, z0)
-    ft = tfr.inject_flips(tfr.zero_frames(B, n), np.arange(n),
+    ft = tfr.inject_flips(tfr.zero_frames(B, n, "cpu"), np.arange(n),
                           torch.as_tensor(x0), torch.as_tensor(z0))
     key = jax.random.key(3)
     cj = jfr.compile_circuit(ops, q0, q1, n)
@@ -109,7 +109,7 @@ def test_measure_and_reset_match():
     z0 = rng.integers(0, 2, (B, n), dtype=np.uint8)
     q = np.array([2, 5, 7])
     fj = jfr.inject_flips(jfr.zero_frames(B, n), jnp.arange(n), x0, z0)
-    ft = tfr.inject_flips(tfr.zero_frames(B, n), np.arange(n),
+    ft = tfr.inject_flips(tfr.zero_frames(B, n, "cpu"), np.arange(n),
                           torch.as_tensor(x0), torch.as_tensor(z0))
     _, oj = jfr.measure_deviations(fj, q)
     _, ot = tfr.measure_deviations(ft, q)

@@ -28,14 +28,23 @@ PORT_MODULES = [
     "qcss_tpu_torch",
     "qcss_tpu_torch._cuda",
     "qcss_tpu_torch.benchmarks.device_uf_bench",
+    "qcss_tpu_torch.benchmarks.steane_mc",
+    "qcss_tpu_torch.benchmarks.syndrome_sweep",
     "qcss_tpu_torch.circuits",
     "qcss_tpu_torch.codes",
     "qcss_tpu_torch.decode",
+    "qcss_tpu_torch.decode.classical",
     "qcss_tpu_torch.decode.device_sparse",
     "qcss_tpu_torch.decode.device_sparse_cuda",
     "qcss_tpu_torch.decode.device_uf",
     "qcss_tpu_torch.decode.device_uf_cuda",
+    "qcss_tpu_torch.decode.lut",
+    "qcss_tpu_torch.decode.montecarlo",
+    "qcss_tpu_torch.decode.multiround",
+    "qcss_tpu_torch.decode.spacetime",
+    "qcss_tpu_torch.decode.sweep",
     "qcss_tpu_torch.experiments.memory",
+    "qcss_tpu_torch.ops.cuda_gf2",
     "qcss_tpu_torch.ops.gf2_torch",
     "qcss_tpu_torch.sim.frame",
     "qcss_tpu_torch.sim.noise",
@@ -127,6 +136,8 @@ COPIED_DEFS = [
                                  "build_sparse_tables"]),
     ("experiments/memory.py", ["z_extraction_circuit",
                                "x_extraction_circuit"]),
+    ("decode/spacetime.py", ["spacetime_check_matrix",
+                             "spacetime_correction_lut"]),
 ]
 
 

@@ -6,6 +6,9 @@
   JAX run's rate at the same settings.
 * Identical detectors (sampled once by the JAX package) must give
   identical failure counts through both packages' device decoders: exact.
+* The LUT decoders ('vote', 'difference', 'stlut'), given the syndromes
+  and readout the JAX sampler drew, must give identical logical-failure
+  and residual-syndrome counts: exact.
 """
 
 import math
@@ -16,13 +19,15 @@ import numpy as np
 import pytest
 import torch
 
-from qcss_tpu.codes.families import rotated_surface
+from qcss_tpu.codes.families import rotated_surface, steane
 from qcss_tpu.decode import device_uf as jdu
 from qcss_tpu.decode.dem import circuit_level_graph, extraction_gate_list
-from qcss_tpu.decode.spacetime import detector_history
+from qcss_tpu.decode.spacetime import detector_history, spacetime_correction_lut
 from qcss_tpu.experiments import memory as jmem
+from qcss_tpu.ops import gf2_jax
 from qcss_tpu.sim.noise import NoiseModel as JNoise
 from qcss_tpu_torch.decode import device_uf as tdu
+from qcss_tpu_torch.codes import families as tfam
 from qcss_tpu_torch.decode import uf as tuf
 from qcss_tpu_torch.experiments import memory as tmem
 from qcss_tpu_torch.sim.noise import NoiseModel as TNoise
@@ -59,7 +64,7 @@ def test_failure_rate_within_wilson_of_jax(decoder, basis):
     rj = jmem.memory_experiment(rotated_surface(3), noise=JNoise(**NOISE),
                                 batch=Bj, seed=1, **kw)
     rt = tmem.memory_experiment(rotated_surface(3), noise=TNoise(**NOISE),
-                                batch=Bt, seed=1, **kw)
+                                batch=Bt, seed=1, device="cpu", **kw)
     assert rt["samples"] == Bt and rt["decoder"] == decoder
     lo, hi = _wilson(round(rj["logical_fail"] * Bj), Bj)
     assert 0 < rt["logical_fail"] and lo <= rt["logical_fail"] <= hi, (
@@ -84,7 +89,8 @@ def test_identical_detectors_identical_failures():
     tg = tuf.MatchingGraph(
         num_nodes=g.num_nodes, edges=g.edges, edge_qubit=g.edge_qubit,
         edge_obs=g.edge_obs, n_qubits=g.n_qubits, edge_weight=g.edge_weight)
-    obs_t, conv_t = tdu.make_obs_decoder(tg)(torch.as_tensor(dets))
+    obs_t, conv_t = tdu.make_obs_decoder(tg, device="cpu")(
+        torch.as_tensor(dets))
     fails_j = int(np.sum(outcome ^ (np.asarray(obs_j) & 1)))
     fails_t = int(np.sum(outcome ^ (obs_t.numpy() & 1)))
     assert fails_j > 0
@@ -97,11 +103,95 @@ def test_unported_engines_and_decoders_raise():
     noise = TNoise(**NOISE)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmem.memory_experiment(code, rounds=3, noise=noise,
-                               decoder="device-dem", engine="tableau")
-    for decoder in ("vote", "stlut", "uf", "dem-mwpm"):
+                               decoder="device-dem", engine="tableau",
+                               device="cpu")
+    for decoder in ("uf", "dem-mwpm"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tmem.memory_experiment(code, rounds=3, noise=noise,
-                                   decoder=decoder, engine="frames")
+                                   decoder=decoder, engine="frames",
+                                   device="cpu")
     with pytest.raises(ValueError):
         tmem.memory_experiment(code, rounds=3, noise=noise,
-                               decoder="nope", engine="frames")
+                               decoder="nope", engine="frames", device="cpu")
+
+
+def test_default_device_is_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present, so the default runs there")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tmem.memory_experiment(rotated_surface(3), rounds=3,
+                               noise=TNoise(**NOISE), decoder="device-dem",
+                               engine="frames")
+
+
+LUT_NOISE = dict(p_gate2=2e-2, p_meas=2e-2)
+LUT_ROUNDS, LUT_BATCH = 3, 4096
+
+
+@pytest.fixture(scope="module")
+def jax_lut_samples():
+    """A Steane Z-memory draw of the JAX sampler over the standard-form
+    checks (the LUTs key on them): (code, (syns, word)). The decodes are
+    functions of these arrays alone, and Steane's X and Z checks have the
+    same shape, so the X-basis decodes run on the same draw."""
+    code = steane()
+    draw = jmem._memory_circuit_frames(
+        jax.random.key(11), LUT_BATCH, LUT_ROUNDS, code, JNoise(**LUT_NOISE),
+        tuple(map(jnp.asarray, jmem.z_extraction_circuit(code).to_arrays())),
+        n_anc=code.parity_check_c2.shape[0])
+    return code, draw
+
+
+def _jax_lut_counts(code, syns, word, decoder, basis, stlut):
+    """The decode half of the reference's `_memory_body`."""
+    dev = code.device
+    h_std = dev.h2 if basis == "z" else dev.h1
+    if decoder == "stlut":
+        dets = detector_history(syns, gf2_jax.syndromes_dense(word, h_std))
+        corr = jnp.take(jnp.asarray(stlut), gf2_jax.bits_to_index(dets),
+                        axis=0)
+    else:
+        lut = dev.lut_c2 if basis == "z" else dev.lut_c1
+        decode = {"vote": jmem._decode_vote,
+                  "difference": jmem._decode_difference}[decoder]
+        corr = decode(syns, word, lut, h_std)
+    return jmem._count_failures(word, corr, code, basis)
+
+
+def _stlut(code, basis):
+    std = code.parity_check_c2 if basis == "z" else code.parity_check_c1
+    return spacetime_correction_lut(std, LUT_ROUNDS, 4)
+
+
+@pytest.mark.parametrize("decoder,basis", [("vote", "z"),
+                                           ("difference", "x"),
+                                           ("stlut", "z")])
+def test_lut_decoders_identical_given_jax_samples(jax_lut_samples, decoder,
+                                                  basis):
+    code, (syns, word) = jax_lut_samples
+    stlut = _stlut(code, basis) if decoder == "stlut" else None
+    want = _jax_lut_counts(code, syns, word, decoder, basis, stlut)
+    got = tmem._decode_counts(
+        torch.from_numpy(np.array(syns)), torch.from_numpy(np.array(word)),
+        tfam.steane().device, decoder,
+        None if stlut is None else torch.from_numpy(stlut), basis)
+    assert int(want["logical_fail"]) > 0
+    for k in ("logical_fail", "residual_syndrome"):
+        assert int(got[k]) == int(want[k]), k
+
+
+def test_lut_decoder_rate_within_wilson_of_jax(jax_lut_samples):
+    # the reference's rate on its own draws, against the port's whole
+    # memory_experiment (its sampler, extraction circuit and decode)
+    code, (syns, word) = jax_lut_samples
+    kj = int(_jax_lut_counts(code, syns, word, "stlut", "z",
+                             _stlut(code, "z"))["logical_fail"])
+    Bt = LUT_BATCH * 2
+    rt = tmem.memory_experiment(tfam.steane(), noise=TNoise(**LUT_NOISE),
+                                rounds=LUT_ROUNDS, decoder="stlut",
+                                engine="frames", batch=Bt, seed=2,
+                                device="cpu")
+    assert rt["samples"] == Bt and 0.0 <= rt["residual_syndrome"] <= 1.0
+    lo, hi = _wilson(kj, LUT_BATCH)
+    assert 0 < rt["logical_fail"] and lo <= rt["logical_fail"] <= hi, (
+        kj / LUT_BATCH, rt["logical_fail"], lo, hi)
