@@ -6,10 +6,12 @@ Run from the root of a checkout on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from `qcss_tpu_torch/csrc` (nvcc, sm_90a, one
-process per source) and drives the port's two paths on the card: the
+process per source) and drives the port's paths on the card: the
 circuit-level surface-code memory with sampling and decoding fused, at
-distance 11 over 11 rounds, and the code-capacity Monte Carlo with the
-packed GF(2) kernels:
+distance 11 over 11 rounds; the code-capacity Monte Carlo with the packed
+GF(2) kernels; and the unbounded-round streaming memory (sliding windows
+on the stencil kernel, carry lanes in spilled chunks) with the staged
+routes of the same decode:
 
 1. prints the toolchain and the card;
 2. builds the kernels;
@@ -26,6 +28,12 @@ packed GF(2) kernels:
    random words at Steane and Golay (B = 2^22), and K8 then K6 on the
    headline's own inputs (Steane errors from its sampler, B = 2^22,
    W = 1, one logical row);
+   then K1 on graphs with spilled lanes (the d=11 mid-window graphs of
+   the streaming decoder, phenomenological and circuit-level: packed,
+   activity, every chunk plane, every lane and convergence), K3, K4 and
+   K5 on the state entering growth rounds 1 to 3 of the d=11 decode, the
+   two staged decodes against K1's labels, and the generic packed and
+   unpacked decoders on the card against the CPU;
 6. main path 1: `memory_experiment(..., decoder="device-dem",
    engine="frames", batch=16384, device="cuda")` and the fused dense,
    sparse and hybrid pipelines at B=16384 (shots/s, logical failure
@@ -37,6 +45,12 @@ packed GF(2) kernels:
 8. main path 3: the syndrome sweep (`benchmarks/syndrome_sweep.py`,
    rotated surface d=3..11, B=2^20, dense / packed torch / K7), one JSON
    line per (d, form); K7 must have launched;
+   main path 4: the streaming memory, `benchmarks/stream_bench.py` at
+   d=11, B=8192, 800 rounds, p=q=0.004, window 8, commit 4 (round-shots/s)
+   and `stream_memory_rate_dem` over 96 rounds; the card's d=5 failure
+   count against the CPU's; K1 must have launched on chunk graphs. Main
+   path 5: `decode_stencil_staged` and `decode_stencil_fused` at B=16384
+   on the d=11 graph; K3, K4 and K5 must have launched;
 9. times each kernel, its plain version and (K6, K7) the dense matmul
    form at the main paths' shapes, beside each kernel's bound, checking
    each timed output against the plain version's; and times one round's
@@ -68,6 +82,11 @@ MC_ROUNDS = 64
 MC_P = 0.01
 MC_CPU_BATCH = 1 << 16
 SWEEP_BATCH = 1 << 20
+STREAM_BATCH = 1 << 13
+STREAM_ROUNDS = 800
+STREAM_DEM_ROUNDS = 96
+STREAM_P = 0.004
+WINDOW, COMMIT = 8, 4
 Z999 = 3.2905
 # the least time the card could take: device memory at 3.35 TB/s (NVIDIA's
 # H100 SXM data sheet); 32-bit integer instructions at 64 lanes per SM per
@@ -179,6 +198,42 @@ def sparse_bytes(dets, d_max: int) -> int:
             + 2 * 4 * B)
 
 
+def round_states(duf, dg, defect, rounds: int):
+    """The state entering each of the first growth rounds of the staged
+    decode, walked with the plain pieces: (packed, seed, sup [B, O+KB, V])."""
+    import torch
+
+    B, V = defect.shape
+    O = len(dg.stencil.deltas)
+    KB = dg.stencil.bmask.shape[0]
+    packed = duf.initial_labels(dg, B, defect.device)
+    sup = torch.zeros((B, O + KB, V), dtype=torch.int32,
+                      device=defect.device)
+    seed = defect
+    out = []
+    for _ in range(rounds):
+        out.append((packed, seed, sup))
+        packed, sups, supbs, _ = duf._round_plain(dg, packed, seed,
+                                                  sup[:, :O], sup[:, O:])
+        sup = torch.cat([sups, supbs], dim=1)
+        seed = duf.parity_seeds(dg, packed, defect)
+    return out
+
+
+def staged_inputs(duf, dg, state):
+    """The inputs of K4 and K3 inside the round that starts from ``state``:
+    the passes of the activity spread, and the saturation masks after the
+    round's growth step (K3 then does the round's propagation)."""
+    packed, seed, sup = state
+    O = len(dg.stencil.deltas)
+    satm, _ = duf._saturated(dg, sup[:, :O], sup[:, O:])
+    passes = duf._cluster_passes(dg, packed, satm)
+    act = duf._act_plain(dg, seed, passes)
+    sups, supbs, _ = duf._grow_step(dg, packed, act, sup[:, :O], sup[:, O:])
+    satm, satb = duf._saturated(dg, sups, supbs)
+    return satm.contiguous(), satb.contiguous(), passes
+
+
 def main() -> int:
     try:
         import torch
@@ -197,7 +252,11 @@ def main() -> int:
         return 2
 
     from qcss_tpu_torch import _cuda
-    from qcss_tpu_torch.benchmarks import steane_mc, syndrome_sweep
+    from qcss_tpu_torch.benchmarks import (
+        steane_mc,
+        stream_bench,
+        syndrome_sweep,
+    )
     from qcss_tpu_torch.benchmarks.device_uf_bench import build_pipeline
     from qcss_tpu_torch.benchmarks.device_uf_bench import run as bench_run
     from qcss_tpu_torch.codes import families
@@ -205,7 +264,18 @@ def main() -> int:
     from qcss_tpu_torch.decode import device_sparse as dsp
     from qcss_tpu_torch.decode import device_sparse_cuda, device_uf_cuda
     from qcss_tpu_torch.decode import device_uf as duf
+    from qcss_tpu_torch.decode import device_uf_staged as dstaged
     from qcss_tpu_torch.decode import montecarlo
+    from qcss_tpu_torch.decode.dem import extraction_gate_list
+    from qcss_tpu_torch.decode.device_streaming import (
+        DeviceStreamingDecoder,
+        stream_memory_rate,
+        stream_memory_rate_dem,
+    )
+    from qcss_tpu_torch.decode.streaming import (
+        _window_graph,
+        sample_phenomenological_stream,
+    )
     from qcss_tpu_torch.decode.montecarlo import logical_error_rate
     from qcss_tpu_torch.experiments.memory import memory_experiment
     from qcss_tpu_torch.ops import cuda_gf2, gf2, gf2_torch
@@ -273,8 +343,8 @@ def main() -> int:
 
     # -- 3. K1 against its plain version
     defect = duf.stencil_defect(dg, dets)
-    packed_k, act_k = device_uf_cuda.stencil_full(dg, defect)
-    packed_p, act_p = duf._stencil_plain(dg, defect)
+    packed_k, act_k, _ = device_uf_cuda.stencil_full(dg, defect)
+    packed_p, act_p, _ = duf._stencil_plain(dg, defect)
     torch.cuda.synchronize()
     lab_k, conv_k = duf._stencil_labels(dg, defect, packed_k, act_k)
     lab_p, conv_p = duf._stencil_labels(dg, defect, packed_p, act_p)
@@ -411,6 +481,123 @@ def main() -> int:
             f"sector (B={MC_BATCH}, W={words.shape[1]}, "
             f"k={sec.logicals.shape[0]}): {int(p6.sum())} logical flips")
 
+
+    # -- 5b. K1 on graphs with spilled lanes: the streaming decoder's d=11
+    #    mid-window graphs, on 1024 sampled window rows each
+    raw = code.raw_parity_check_c2
+    lz = code.z_operator_matrix()
+    gates = extraction_gate_list(code, raw)
+    t0 = time.perf_counter()
+    windows = {
+        "phenomenological": DeviceStreamingDecoder(
+            raw, lz, window=WINDOW, commit=COMMIT, p_space=STREAM_P,
+            p_time=STREAM_P, device=dev),
+        "circuit-level": DeviceStreamingDecoder.from_dem(
+            raw, lz, gates, window=WINDOW, commit=COMMIT,
+            p_gate2=noise.p_gate2, p_meas=noise.p_meas, device=dev),
+    }
+    log(f"built the d={D} mid-window graphs in "
+        f"{time.perf_counter() - t0:.1f} s")
+    win_rows = {
+        "phenomenological": sample_phenomenological_stream(
+            torch.Generator(device=dev).manual_seed(11), STREAM_P, STREAM_P,
+            CHECK_ROWS, WINDOW, raw, lz)[0][:, :WINDOW].reshape(
+                CHECK_ROWS, -1),
+        "circuit-level": sample_dets(
+            torch.Generator(device=dev).manual_seed(12), CHECK_ROWS,
+            WINDOW)[0][:, :WINDOW * raw.shape[0]],
+    }
+    k1c_err = 0
+    for name, dec in windows.items():
+        mid = dec._mid
+        NC = len(mid.stencil.chunks)
+        if NC == 0:
+            raise RuntimeError(f"the d={D} {name} mid-window graph must "
+                               f"carry spilled lanes")
+        wdef = duf.stencil_defect(mid, win_rows[name].contiguous())
+        out_k = device_uf_cuda.stencil_full(mid, wdef)
+        out_p = duf._stencil_plain(mid, wdef)
+        torch.cuda.synchronize()
+        lab_wk, conv_wk = duf._stencil_labels(mid, wdef, *out_k)
+        lab_wp, conv_wp = duf._stencil_labels(mid, wdef, *out_p)
+        planes = [(out_k[0], out_p[0]), (out_k[1], out_p[1]),
+                  *zip(out_k[2], out_p[2]), *zip(lab_wk, lab_wp)]
+        k1c_err = max([k1c_err] + [max_abs(a, b) for a, b in planes])
+        if k1c_err or len(out_k[2]) != NC or len(lab_wk) != len(lab_wp) \
+                or not torch.equal(conv_wk, conv_wp):
+            raise RuntimeError(f"stencil kernel with chunks disagrees with "
+                               f"its plain version on the {name} window "
+                               f"graph (max abs err {k1c_err})")
+        if not bool(conv_wk.all()):
+            raise RuntimeError("a window row did not converge")
+        carry_bits = sum(int((lab != 0).sum()) for lab in lab_wk[1:])
+        log(f"K1 with chunks == plain version on {CHECK_ROWS} {name} window "
+            f"rows: V={wdef.shape[1]} O={len(mid.stencil.deltas)} "
+            f"KB={mid.stencil.bmask.shape[0]} L={mid.pack_shift} NC={NC}, "
+            f"{len(lab_wk)} lanes (packed, act, chunk planes, lanes, "
+            f"converged); mean {float(wdef.sum(1).float().mean()):.2f} "
+            f"defects/row, {carry_bits} rows*lanes with a carry")
+
+    # -- 5c. K3, K4, K5 on the state entering growth rounds 1-3 of the
+    #    d=11 decode of the 1024 rows, and the two staged decodes
+    O7 = len(st.deltas)
+    k3_err = k4_err = k5_err = 0
+    for rnd, state in enumerate(round_states(duf, dg, defect, 3), 1):
+        packed_s, seed_s, sup_s = state
+        satm_s, satb_s, passes_s = staged_inputs(duf, dg, state)
+        got = device_uf_cuda.stencil_round(dg, packed_s, seed_s, sup_s)
+        ref = duf._round_plain(dg, packed_s, seed_s, sup_s[:, :O7],
+                               sup_s[:, O7:])
+        ref = (ref[0], torch.cat([ref[1], ref[2]], dim=1), ref[3])
+        k5_err = max([k5_err] + [max_abs(a, b) for a, b in zip(got, ref)])
+        k4_err = max(k4_err, max_abs(
+            device_uf_cuda.stencil_act(dg, seed_s, passes_s),
+            duf._act_plain(dg, seed_s, passes_s)))
+        k3 = device_uf_cuda.stencil_prop(dg, packed_s, satm_s, satb_s)
+        k3_err = max(k3_err, max_abs(k3, got[0]), max_abs(
+            k3, duf._prop_plain(dg, packed_s, satm_s, satb_s)))
+        torch.cuda.synchronize()
+        if k3_err or k4_err or k5_err:
+            raise RuntimeError(
+                f"a staged kernel disagrees with its plain version at round "
+                f"{rnd} (max abs err K3 {k3_err}, K4 {k4_err}, K5 {k5_err})")
+    log(f"K3 prop, K4 act, K5 round == plain versions on the state entering "
+        f"rounds 1-3 of {CHECK_ROWS} rows")
+    for fn in (dstaged.decode_stencil_staged, dstaged.decode_stencil_fused):
+        lab_s, conv_s_ = fn(dg, dets)
+        if not (torch.equal(lab_s[0], lab_k[0])
+                and torch.equal(conv_s_, conv_k)):
+            raise RuntimeError(f"{fn.__name__} disagrees with the stencil "
+                               f"kernel's labels")
+        log(f"{fn.__name__} == K1's labels and converged on {CHECK_ROWS} "
+            f"rows")
+
+    # -- 5d. the generic decoders (plain torch, as they are plain XLA in
+    #    the reference): the card against the CPU, with and without per-shot
+    #    weights. argmin's first-minimum tie-break decides their paths.
+    g_win = _window_graph(raw, lz, WINDOW, True, STREAM_P, STREAM_P)[0]
+    rng_lane = torch.Generator().manual_seed(5)
+    wide = torch.randint(0, 1 << 30, (g_win.num_edges,), generator=rng_lane)
+    rows256 = win_rows["phenomenological"][:256].contiguous()
+    w256 = torch.randint(1, 9, (256, g_win.num_edges), generator=rng_lane,
+                         dtype=torch.int32)
+    for fn, dgen in ((duf._decode_packed,
+                      duf.build_device_graph(g_win, stencil=False)),
+                     (duf._decode_unpacked,
+                      duf.build_device_graph(g_win,
+                                             extra_lanes=(wide.numpy(),)))):
+        for weights in (None, w256):
+            lab_g, conv_g = fn(dgen.to(dev), rows256,
+                               None if weights is None else weights.to(dev))
+            lab_h, conv_h = fn(dgen, rows256.cpu(), weights)
+            if not (all(torch.equal(a.cpu(), b) for a, b in zip(lab_g, lab_h))
+                    and torch.equal(conv_g.cpu(), conv_h)
+                    and bool(conv_h.all())):
+                raise RuntimeError(f"{fn.__name__} on the card disagrees "
+                                   f"with the CPU")
+        log(f"{fn.__name__} on the card == on the CPU on 256 window rows "
+            f"({len(lab_g)} lanes; with and without shot_weights)")
+
     # -- 6. main path 1: the fused circuit-level memory, counted
     device_uf_cuda.launches = 0
     device_sparse_cuda.launches = 0
@@ -482,18 +669,99 @@ def main() -> int:
     if n_k7 <= 0:
         raise RuntimeError("K7 was never launched by the syndrome sweep")
 
+
+    # -- 8b. main path 4: the streaming memory, counted
+    device_uf_cuda.launches = device_uf_cuda.chunk_launches = 0
+    stream = stream_bench.run(D, STREAM_ROUNDS, STREAM_BATCH, STREAM_P,
+                              STREAM_P, WINDOW, COMMIT, seed=0)
+    t0 = time.perf_counter()
+    stream_dem = stream_memory_rate_dem(
+        code, noise, rounds=STREAM_DEM_ROUNDS, batch=STREAM_BATCH,
+        window=WINDOW, commit=COMMIT, seed=2)
+    torch.cuda.synchronize()
+    stream_dem["wall_s"] = time.perf_counter() - t0
+    stream_dem["round_shots_per_sec"] = (STREAM_DEM_ROUNDS * STREAM_BATCH
+                                         / stream_dem["wall_s"])
+    n_k1_stream = device_uf_cuda.launches
+    n_k1_chunks = device_uf_cuda.chunk_launches
+    log(f"stream_memory_rate d={D} B={STREAM_BATCH} R={STREAM_ROUNDS} "
+        f"p=q={STREAM_P} window {WINDOW} commit {COMMIT}: "
+        f"{stream['round_shots_per_sec']:.1f} round-shots/s "
+        f"({stream['wall_s']:.3f} s, graph build included), logical_fail "
+        f"{stream['logical_fail']:.6f}; K1 launches in the timed run "
+        f"{stream['launches']}, {stream['chunk_launches']} on chunk graphs")
+    log(f"stream_memory_rate_dem d={D} B={STREAM_BATCH} "
+        f"R={STREAM_DEM_ROUNDS}: {stream_dem['round_shots_per_sec']:.1f} "
+        f"round-shots/s ({stream_dem['wall_s']:.3f} s, graph build "
+        f"included), logical_fail {stream_dem['logical_fail']:.6f}")
+    log(f"main path 4 launches: stencil kernel {n_k1_stream}, "
+        f"{n_k1_chunks} of them with chunks")
+    want = (STREAM_ROUNDS - WINDOW) // COMMIT
+    if stream["chunk_launches"] != want or n_k1_chunks <= want:
+        raise RuntimeError(f"the streaming path launched the chunk kernel "
+                           f"{stream['chunk_launches']} times in the timed "
+                           f"run, {n_k1_chunks} in all; expected {want} and "
+                           f"more")
+    if not (0.0 <= stream["logical_fail"] < 0.05
+            and 0.0 <= stream_dem["logical_fail"] < 0.05):
+        raise RuntimeError("implausible streaming failure rates")
+    hot_code = rotated_surface(5)
+    fails = {}
+    for where in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        out = stream_memory_rate(
+            hot_code.raw_parity_check_c2, hot_code.z_operator_matrix(),
+            0.008, 0.008, rounds=100, batch=4096, window=WINDOW,
+            commit=COMMIT, seed=3, device=where)
+        fails[where] = round(out["logical_fail"] * 4096)
+        log(f"stream d=5 R=100 B=4096 p=q=0.008 on {where}: "
+            f"{fails[where]} failures, {time.perf_counter() - t0:.1f} s")
+    ok, spread = two_sample_ok(fails["cuda"], 4096, fails["cpu"], 4096)
+    log(f"d=5 stream: logical_fail on the card {fails['cuda'] / 4096:.6f}, "
+        f"on the CPU {fails['cpu'] / 4096:.6f} (allowed difference "
+        f"{spread:.6f})")
+    if not (fails["cuda"] > 0 and ok):
+        raise RuntimeError("the card's streaming failure rate disagrees "
+                           "with the CPU's")
+
+    # -- 8c. main path 5: the staged decodes at the fused memory's shape,
+    #    counted and timed whole
+    for k in device_uf_cuda.staged_launches:
+        device_uf_cuda.staged_launches[k] = 0
+    lab_full, conv_full = duf.decode_labels(dg, dets_big)
+    staged_ms = {}
+    for fn in (dstaged.decode_stencil_staged, dstaged.decode_stencil_fused):
+        lab_s, conv_s_ = fn(dg, dets_big)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lab_s, conv_s_ = fn(dg, dets_big)
+        torch.cuda.synchronize()
+        staged_ms[fn.__name__] = (time.perf_counter() - t0) * 1e3
+        if not (torch.equal(lab_s[0], lab_full[0])
+                and torch.equal(conv_s_, conv_full)):
+            raise RuntimeError(f"{fn.__name__} disagrees with K1 at "
+                               f"B={BATCH}")
+    n_staged = dict(device_uf_cuda.staged_launches)
+    log(f"main path 5 launches (two calls of each decode): K3 "
+        f"{n_staged['prop']}, K4 {n_staged['act']}, K5 {n_staged['round']}; "
+        f"whole decode at B={BATCH}: staged "
+        f"{staged_ms['decode_stencil_staged']:.3f} ms, fused "
+        f"{staged_ms['decode_stencil_fused']:.3f} ms (== K1's labels)")
+    if min(n_staged.values()) <= 0:
+        raise RuntimeError("a staged kernel was never launched by its staged decode")
+
     # -- 9. kernel and plain-version times at the main paths' shapes
     defect_big = duf.stencil_defect(dg, dets_big)
     k1_ms = cuda_ms(lambda: device_uf_cuda.stencil_full(dg, defect_big), 5)
     k1_plain_ms = cuda_ms(lambda: duf._stencil_plain(dg, defect_big), 2)
-    pk, ak = device_uf_cuda.stencil_full(dg, defect_big)
-    pp, ap = duf._stencil_plain(dg, defect_big)
+    pk, ak, _ = device_uf_cuda.stencil_full(dg, defect_big)
+    pp, ap, _ = duf._stencil_plain(dg, defect_big)
     k1_err = max(k1_err, max_abs(pk, pp), max_abs(ak, ap))
     if k1_err:
         raise RuntimeError(f"stencil kernel disagrees at B={BATCH}")
     V1 = defect_big.shape[1]
-    k1_bound = bound(4 * (3 * BATCH * V1 + device_uf_cuda._tables(
-        st).numel() + len(st.deltas)))
+    k1_bound = bound(4 * (3 * BATCH * V1 + st.kernel_tables.numel()
+                          + len(st.deltas)))
     k2_ms = cuda_ms(lambda: device_sparse_cuda.sparse_decode_cuda(
         tables_dev, D_MAX, ev48, dets_big), 5)
     k2_plain_ms = cuda_ms(lambda: dsp._sparse_plain(
@@ -510,6 +778,87 @@ def main() -> int:
     log(f"K2 sparse B={BATCH} d_max={D_MAX}: kernel {k2_ms:.4f} ms, plain "
         f"{k2_plain_ms:.3f} ms (compaction and distance fetch included), "
         f"bound {k2_bound[0]:.4f} ms ({k2_bound[1]})")
+
+    # K1 at the streaming window's shape, with chunks
+    mid = windows["phenomenological"]._mid
+    wdets = sample_phenomenological_stream(
+        torch.Generator(device=dev).manual_seed(13), STREAM_P, STREAM_P,
+        STREAM_BATCH, WINDOW, raw, lz)[0][:, :WINDOW].reshape(
+            STREAM_BATCH, -1).contiguous()
+    wdef = duf.stencil_defect(mid, wdets)
+    k1w_ms = cuda_ms(lambda: device_uf_cuda.stencil_full(mid, wdef), 5)
+    k1w_plain_ms = cuda_ms(lambda: duf._stencil_plain(mid, wdef), 2)
+    out_k = device_uf_cuda.stencil_full(mid, wdef)
+    out_p = duf._stencil_plain(mid, wdef)
+    k1c_err = max([k1c_err, max_abs(out_k[0], out_p[0]),
+                   max_abs(out_k[1], out_p[1])]
+                  + [max_abs(a, b) for a, b in zip(out_k[2], out_p[2])])
+    if k1c_err:
+        raise RuntimeError(f"stencil kernel with chunks disagrees at "
+                           f"B={STREAM_BATCH}")
+    Vw = wdef.shape[1]
+    NCw = len(mid.stencil.chunks)
+    k1w_bound = bound(4 * ((3 + NCw) * STREAM_BATCH * Vw
+                           + mid.stencil.kernel_tables.numel()
+                           + mid.stencil.kernel_chunk_tables.numel()
+                           + len(mid.stencil.deltas)))
+    log(f"K1 stencil with chunks B={STREAM_BATCH} V={Vw} NC={NCw}: kernel "
+        f"{k1w_ms:.4f} ms, plain {k1w_plain_ms:.3f} ms, bound "
+        f"{k1w_bound[0]:.4f} ms ({k1w_bound[1]})")
+    # an estimate from two runs, not a reading of one: K1's time here, on
+    # rows sampled for this step, times the timed call's chunk launches,
+    # over that call's wall time (`stream_bench --profile` reads the share
+    # off one trace)
+    stream["stencil_kernel_share_estimate"] = (
+        k1w_ms * stream["chunk_launches"] / (stream["wall_s"] * 1e3))
+    log(f"K1's share of the timed streaming call, estimated: {k1w_ms:.4f} "
+        f"ms here x {stream['chunk_launches']} windows over that call's "
+        f"{stream['wall_s']:.3f} s = "
+        f"{stream['stencil_kernel_share_estimate']:.3f}")
+
+    # K3, K4, K5: one launch each at B=16384 on the state entering round 2.
+    # Bytes the function needs: int32 planes for labels and supports, one
+    # byte an element for every 0/1 plane (K3's and K4's masks, which the
+    # kernels read as bytes, and K4's act and K5's seed and grew, which the
+    # port's interface carries as int32), and the tables each kernel reads.
+    state2 = round_states(duf, dg, defect_big, 2)[1]
+    packed_s, seed_s, sup_s = state2
+    satm_s, satb_s, passes_s = staged_inputs(duf, dg, state2)
+    KB1 = st.bmask.shape[0]
+    plane = 4 * BATCH * V1
+    flags = BATCH * V1  # a 0/1 plane at one byte an element
+    tab_words = st.kernel_tables.numel()
+    staged = {}
+    for key, kernel, plain, nbytes in (
+            ("K3", lambda: device_uf_cuda.stencil_prop(dg, packed_s, satm_s,
+                                                       satb_s),
+             lambda: duf._prop_plain(dg, packed_s, satm_s, satb_s),
+             2 * plane + (O7 + KB1) * flags
+             + 4 * ((O7 + KB1) * V1 + O7)),
+            ("K4", lambda: device_uf_cuda.stencil_act(dg, seed_s, passes_s),
+             lambda: duf._act_plain(dg, seed_s, passes_s),
+             (2 + O7) * flags + 4 * O7),
+            ("K5", lambda: device_uf_cuda.stencil_round(dg, packed_s, seed_s,
+                                                        sup_s),
+             lambda: (lambda r: (r[0], torch.cat([r[1], r[2]], dim=1), r[3]))(
+                 duf._round_plain(dg, packed_s, seed_s, sup_s[:, :O7],
+                                  sup_s[:, O7:])),
+             (2 + 2 * (O7 + KB1)) * plane + 2 * flags
+             + 4 * (tab_words + O7))):
+        got, ref = kernel(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        err = max(max_abs(a, b) for a, b in zip(got, ref))
+        if err:
+            raise RuntimeError(f"{key} disagrees with its plain version at "
+                               f"B={BATCH} (max abs err {err})")
+        staged[key] = {"ms": cuda_ms(kernel, 10),
+                       "plain_ms": cuda_ms(plain, 2), "library_ms": None}
+        staged[key]["bound_ms"], staged[key]["bound_by"] = bound(nbytes)
+        log(f"{key} B={BATCH} on round-2 state: kernel "
+            f"{staged[key]['ms']:.4f} ms (== plain), plain "
+            f"{staged[key]['plain_ms']:.3f} ms, bound "
+            f"{staged[key]['bound_ms']:.4f} ms ({staged[key]['bound_by']})")
 
     def packed_times(label, kernel, plain, args, dense_args, nbytes, ops):
         """Times of a packed kernel, its plain version and (dense_args)
@@ -601,6 +950,8 @@ def main() -> int:
 
     print(json.dumps({"pipelines": pipelines, "memory_experiment": res,
                       "steane_mc": mc, "decode_forms_ms": forms,
+                      "stream": stream, "stream_dem": stream_dem,
+                      "staged_decode_ms": staged_ms,
                       "card": smi}), flush=True)
     lib_note = ("gf2_torch.syndromes_dense: one float32 torch.matmul with "
                 "casts, on the unpacked [B, n] bits (another layout)")
@@ -610,7 +961,29 @@ def main() -> int:
          "replaces": "qcss_tpu/decode/device_uf_pallas.py:367",
          "launches": n_k1, "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
-         "bound_by": k1_bound[1], "library_ms": None},
+         "bound_by": k1_bound[1], "library_ms": None,
+         "shape": f"B={BATCH} V={V1} NC=0 (fused memory)",
+         "window": {"shape": f"B={STREAM_BATCH} V={Vw} NC={NCw} (streaming "
+                             f"window)",
+                    "launches": n_k1_chunks, "max_abs_err": k1c_err,
+                    "ms": k1w_ms, "plain_ms": k1w_plain_ms,
+                    "bound_ms": k1w_bound[0], "bound_by": k1w_bound[1],
+                    "library_ms": None}},
+        {"name": "uf_stencil_prop", "route": "cuda",
+         "source": "qcss_tpu_torch/csrc/uf_stencil_staged.cu",
+         "replaces": "qcss_tpu/decode/device_uf_pallas.py:74",
+         "launches": n_staged["prop"], "max_abs_err": k3_err,
+         **staged["K3"]},
+        {"name": "uf_stencil_act", "route": "cuda",
+         "source": "qcss_tpu_torch/csrc/uf_stencil_staged.cu",
+         "replaces": "qcss_tpu/decode/device_uf_pallas.py:149",
+         "launches": n_staged["act"], "max_abs_err": k4_err,
+         **staged["K4"]},
+        {"name": "uf_stencil_round", "route": "cuda",
+         "source": "qcss_tpu_torch/csrc/uf_stencil_staged.cu",
+         "replaces": "qcss_tpu/decode/device_uf_pallas.py:193",
+         "launches": n_staged["round"], "max_abs_err": k5_err,
+         **staged["K5"]},
         {"name": "sparse_growth", "route": "cuda",
          "source": "qcss_tpu_torch/csrc/sparse_growth.cu",
          "replaces": "qcss_tpu/decode/device_sparse.py:395",

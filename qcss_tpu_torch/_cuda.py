@@ -20,8 +20,9 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
-SOURCES = ("uf_stencil_full.cu", "sparse_growth.cu", "gf2_packed.cu")
-HEADERS = ("block_reduce.cuh",)
+SOURCES = ("uf_stencil_full.cu", "uf_stencil_staged.cu", "sparse_growth.cu",
+           "gf2_packed.cu")
+HEADERS = ("block_reduce.cuh", "uf_stencil_common.cuh")
 BUILD_ROOT = _PKG.parent / "build" / "cuda"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -99,8 +100,21 @@ def load() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.qcss_uf_stencil_full.argtypes = [
-            ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr]
+            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr, ptr,
+            ptr, ptr]
         lib.qcss_uf_stencil_full.restype = i32
+        lib.qcss_uf_stencil_full_smem.argtypes = [i32, i32, i32, i32]
+        lib.qcss_uf_stencil_full_smem.restype = i64
+        lib.qcss_stencil_prop.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr]
+        lib.qcss_stencil_prop.restype = i32
+        lib.qcss_stencil_act.argtypes = [
+            ptr, ptr, ptr, i32, i32, i32, ptr, ptr]
+        lib.qcss_stencil_act.restype = i32
+        lib.qcss_stencil_round.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr,
+            ptr]
+        lib.qcss_stencil_round.restype = i32
         lib.qcss_sparse_growth.argtypes = [
             ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr, ptr, ptr]
         lib.qcss_sparse_growth.restype = i32

@@ -25,6 +25,7 @@ import time
 import torch
 
 from qcss_tpu_torch._cuda import resolve_device
+from qcss_tpu_torch.benchmarks.profiling import device_time_by_kernel
 from qcss_tpu_torch.codes import families
 from qcss_tpu_torch.decode import montecarlo
 
@@ -81,20 +82,7 @@ def profile(batch: int = BATCH, rounds: int = ROUNDS, p: float = P_PHYS,
 
     call()
     plain_ms = call()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        wall_ms = call()
-    rows = []
-    for ev in prof.key_averages():
-        if not str(ev.device_type).endswith("CUDA"):
-            continue  # host-side ops; their kernels are listed themselves
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0))
-        if us > 0:
-            rows.append({"name": ev.key[:90], "calls": ev.count,
-                         "self_device_ms": us / 1e3})
-    rows.sort(key=lambda r: -r["self_device_ms"])
+    wall_ms, rows = device_time_by_kernel(call)
     busy = sum(r["self_device_ms"] for r in rows)
     return {
         "bench": "steane_mc_profile", "batch": batch, "rounds": rounds,

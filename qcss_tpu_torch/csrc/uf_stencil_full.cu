@@ -3,27 +3,30 @@
 // Replaces: qcss_tpu/decode/device_uf_pallas.py make_full_kernel (its
 //   pallas_call, driven by decode_stencil_pallas_full). Plain version:
 //   qcss_tpu_torch/decode/device_uf.py _stencil_plain. Both return the
-//   same packed labels and activity, bit for bit.
+//   same packed labels, activity and chunk values, bit for bit.
 //
 // What it computes, per shot: delta-stepped growth over O stencil offsets
 //   and KB boundary slots; label propagation to a fixpoint on packed
 //   int32 words (comp << L | lanes), Jacobi sweeps so every sweep reads
 //   the previous sweep's labels; cluster parity; activity. Rounds stop
-//   when no cluster is active or nothing grew.
+//   when no cluster is active or nothing grew. Label lanes that did not
+//   fit in the packed word (NC chunks of up to 30 bits) come out as one
+//   forest-path word per vertex and chunk.
 //
 // What bounds it on this card: not HBM. A shot reads V detector words and
-//   the 3(O+KB) stencil tables (21 KB at d=11, shared by every shot and so
-//   resident in L2), and writes 2V words. The work is integer control
-//   flow: per round a slack minimum, a propagation fixpoint of (2O+KB)
-//   neighbour reads per vertex per sweep, and a parity pass — each step
-//   ends at a block barrier. Barrier latency, shared-memory traffic and
-//   the depth of the hardest label chain set the time.
+//   the (3 + NC)(O+KB) stencil tables (21 KB at d=11, shared by every shot
+//   and so resident in L2), and writes (2 + NC)V words. The work is integer
+//   control flow: per round a slack minimum, a propagation fixpoint of
+//   (2O+KB) neighbour reads per vertex per sweep, and a parity pass — each
+//   step ends at a block barrier. Barrier latency, shared-memory traffic
+//   and the depth of the hardest label chain set the time.
 //
 // Design:
 //   * one block per shot, all per-shot state in shared memory: labels
 //     (double-buffered for the Jacobi sweeps), activity, defects, the
-//     per-root parity counter, per-vertex saturation bits and the O+KB
-//     support planes — (6+O+KB)*V ints, 40 KB at V=721, O=7, KB=1;
+//     per-root parity counter, per-vertex saturation bits, the O+KB
+//     support planes and 2*NC chunk planes — (6+O+KB+2*NC)*V ints, 40 KB
+//     at V=721, O=7, KB=1, NC=0;
 //   * each block leaves its round loop when its own shot stops, so easy
 //     shots do not wait for the batch's hardest one (this is what
 //     sort_shots and pick_tile approximated on the TPU; neither is needed);
@@ -34,31 +37,37 @@
 //     That is the set the reference's root-to-leaf spread reaches, since a
 //     cluster without the hub is connected by saturated internal edges;
 //   * the hub (vertex V-1) adopts the minimum over every saturated
-//     boundary slot, a block-wide min.
-//
-// Spilled label lanes (ChunkLanes) are not handled here; the wrapper
-// refuses graphs that have them.
+//     boundary slot, a block-wide min;
+//   * spilled lanes: the TPU kernel records which candidate each adoption
+//     took and, after the last round, XOR-spreads every chunk's edge bits
+//     root-to-leaf down that forest. Here the chunk words travel WITH the
+//     labels instead (uf_stencil_common.cuh, propagate_labels<true>): on
+//     adoption a vertex copies its parent's words XOR the edge's chunk
+//     bits. A vertex takes its final root only from a neighbour that
+//     already holds it and never adopts again, so the copied words are
+//     final and equal the forest-path XORs; the tie-break among equal
+//     candidates is the TPU kernel's, which is what the forest depends on.
+//     This needs no second fixpoint after the rounds and no `from_` plane,
+//     at the price of 2*NC planes of shared memory instead of NC+1.
 
 #include <cuda_runtime.h>
 
-#include "block_reduce.cuh"
+#include "uf_stencil_common.cuh"
 
 namespace {
 
-using qcss::block_min;
+using namespace qcss;
 
-constexpr int kBig = 1 << 30;
-constexpr int kMaxOffsets = 10;
-constexpr int kMaxBoundary = 4;
-constexpr int kThreads = 256;
-
-__global__ void __launch_bounds__(kThreads)
+template <bool kChunks>
+__global__ void __launch_bounds__(kStencilThreads)
 uf_stencil_full_kernel(const int* __restrict__ defect_in,
                        const int* __restrict__ tab,
+                       const int* __restrict__ ctab,
                        const int* __restrict__ deltas_in,
-                       int V, int O, int KB, int L, int max_rounds,
+                       int V, int O, int KB, int NC, int L, int max_rounds,
                        int* __restrict__ out_packed,
-                       int* __restrict__ out_act) {
+                       int* __restrict__ out_act,
+                       int* __restrict__ out_chunks) {
   extern __shared__ int smem[];
   __shared__ int deltas[kMaxOffsets];
   __shared__ int scratch[33];
@@ -68,17 +77,12 @@ uf_stencil_full_kernel(const int* __restrict__ defect_in,
   int* act = nxt + V;              // [V] 0/1
   int* defect = act + V;           // [V] 0/1
   int* cnt = defect + V;           // [V] per-root defect parity
-  int* sat = cnt + V;              // [V] bit o: edge (o,v); bit O+k: slot (k,v)
+  int* sat = cnt + V;              // [V] saturation bits
   int* sup = sat + V;              // [O, V] then supb [KB, V]
-  int* supb = sup + O * V;
+  int* ccur = sup + (O + KB) * V;  // [NC, V] chunk words
+  int* cnxt = ccur + NC * V;       // [NC, V] chunk words, next sweep
 
-  const int* emask = tab;
-  const int* ewt = tab + O * V;
-  const int* eobs = tab + 2 * O * V;
-  const int* bmask = tab + 3 * O * V;
-  const int* bwt = bmask + KB * V;
-  const int* bobs = bwt + KB * V;
-
+  const StencilTables t = split_tables(tab, V, O, KB);
   const int bn = V - 1;
   const long long row = (long long)blockIdx.x * V;
   const int tid = threadIdx.x;
@@ -94,107 +98,18 @@ uf_stencil_full_kernel(const int* __restrict__ defect_in,
     any_def |= dv;
   }
   for (int i = tid; i < (O + KB) * V; i += nt) sup[i] = 0;
+  if (kChunks)
+    for (int i = tid; i < NC * V; i += nt) ccur[i] = 0;
   int active = __syncthreads_or(any_def);
 
   for (int round = 0; active && round < max_rounds; ++round) {
     // -- grow (delta-stepped), from last round's activity
-    const int hub_comp = cur[bn] >> L;
-    int local = kBig;
-    for (int v = tid; v < V; v += nt) {
-      const int comp = cur[v] >> L;
-      const int av = act[v];
-      for (int o = 0; o < O; ++o) {
-        const int idx = o * V + v;
-        const int d = deltas[o];
-        const int w = ewt[idx];
-        if (emask[idx] && sup[idx] < w) {
-          const int nb = v + d < V ? (cur[v + d] >> L) : -1;
-          if (comp != nb) {
-            const int inc = av + (v + d < V ? act[v + d] : 0);
-            if (inc > 0) local = min(local, (w - sup[idx] + inc - 1) / inc);
-          }
-        }
-      }
-      for (int k = 0; k < KB; ++k) {
-        const int idx = k * V + v;
-        const int w = bwt[idx];
-        if (bmask[idx] && supb[idx] < w && comp != hub_comp && av > 0)
-          local = min(local, w - supb[idx]);
-      }
-    }
-    const int slack = block_min(local, scratch);
-    int delta = slack > 1 ? slack : 1;
-    if (delta >= kBig) delta = 1;
-    int grew_local = 0;
-    for (int v = tid; v < V; v += nt) {
-      const int comp = cur[v] >> L;
-      const int av = act[v];
-      int bits = 0;
-      for (int o = 0; o < O; ++o) {
-        const int idx = o * V + v;
-        const int d = deltas[o];
-        const int w = ewt[idx];
-        if (emask[idx] && sup[idx] < w) {
-          const int nb = v + d < V ? (cur[v + d] >> L) : -1;
-          if (comp != nb) {
-            const int inc = av + (v + d < V ? act[v + d] : 0);
-            sup[idx] += inc * delta;
-            grew_local |= inc > 0;
-          }
-        }
-        if (emask[idx] && sup[idx] >= w) bits |= 1 << o;
-      }
-      for (int k = 0; k < KB; ++k) {
-        const int idx = k * V + v;
-        const int w = bwt[idx];
-        if (bmask[idx] && supb[idx] < w && comp != hub_comp) {
-          supb[idx] += av * delta;
-          grew_local |= av > 0;
-        }
-        if (bmask[idx] && supb[idx] >= w) bits |= 1 << (O + k);
-      }
-      sat[v] = bits;
-    }
-    const int grew = __syncthreads_or(grew_local);
+    const int grew = grow_step(cur, act, sup, sat, t, deltas, V, O, KB, L,
+                               nullptr, scratch);
 
-    // -- propagate labels to the fixpoint (Jacobi: read cur, write nxt)
-    while (true) {
-      const int hub_val = cur[bn];
-      int changed = 0;
-      int hub_local = kBig;
-      for (int v = tid; v < V; v += nt) {
-        const int pv = cur[v];
-        const int sb = sat[v];
-        int cand = kBig;
-        for (int o = 0; o < O; ++o) {
-          const int d = deltas[o];
-          if (((sb >> o) & 1) && v + d < V)       // parent = v + d
-            cand = min(cand, cur[v + d] ^ eobs[o * V + v]);
-          if (v >= d && ((sat[v - d] >> o) & 1))  // parent = v - d
-            cand = min(cand, cur[v - d] ^ eobs[o * V + v - d]);
-        }
-        for (int k = 0; k < KB; ++k) {
-          if ((sb >> (O + k)) & 1) {
-            const int lab = bobs[k * V + v];
-            cand = min(cand, hub_val ^ lab);        // v adopts from the hub
-            hub_local = min(hub_local, pv ^ lab);   // the hub adopts from v
-          }
-        }
-        const bool adopt = (cand >> L) < (pv >> L);
-        nxt[v] = adopt ? cand : pv;
-        changed |= adopt;
-      }
-      const int hub = block_min(hub_local, scratch);
-      if (tid == 0 && (hub >> L) < (nxt[bn] >> L)) {
-        nxt[bn] = hub;
-        changed = 1;
-      }
-      const int any = __syncthreads_or(changed);
-      int* t = cur;
-      cur = nxt;
-      nxt = t;
-      if (!any) break;
-    }
+    // -- propagate labels (and chunk words) to the fixpoint
+    propagate_labels<kChunks>(cur, nxt, sat, t.eobs, t.bobs, deltas, V, O,
+                              KB, L, NC, ccur, cnxt, ctab, scratch);
 
     // -- cluster parity per root, then activity
     for (int v = tid; v < V; v += nt) cnt[v] = 0;
@@ -217,31 +132,63 @@ uf_stencil_full_kernel(const int* __restrict__ defect_in,
     out_packed[row + v] = cur[v];
     out_act[row + v] = act[v];
   }
+  if (kChunks) {
+    const long long plane = (long long)gridDim.x * V;
+    for (int c = 0; c < NC; ++c)
+      for (int v = tid; v < V; v += nt)
+        out_chunks[c * plane + row + v] = ccur[c * V + v];
+  }
+}
+
+template <bool kChunks>
+cudaError_t launch_full(const int* defect, const int* tables,
+                        const int* chunk_tables, const int* deltas, int B,
+                        int V, int O, int KB, int NC, int L, int max_rounds,
+                        int* out_packed, int* out_act, int* out_chunks,
+                        size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      uf_stencil_full_kernel<kChunks>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  if (B > 0) {
+    uf_stencil_full_kernel<kChunks><<<B, kStencilThreads, smem, stream>>>(
+        defect, tables, chunk_tables, deltas, V, O, KB, NC, L, max_rounds,
+        out_packed, out_act, out_chunks);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// Dynamic shared memory, in bytes, of one block of the kernel.
+extern "C" long long qcss_uf_stencil_full_smem(int V, int O, int KB, int NC) {
+  return (long long)(6 + O + KB + 2 * NC) * V * (long long)sizeof(int);
+}
+
 // defect [B, V] int32 (column V-1, the boundary hub, is 0); tables
 // [3*O + 3*KB, V] int32 = emask, ewt, eobs (O rows each), then bmask,
-// bwt, bobs (KB rows each); deltas [O] int32. Writes packed and act
-// [B, V] int32. Returns the CUDA error code of the launch (0 = success).
+// bwt, bobs (KB rows each); chunk_tables [NC, O+KB, V] int32, per chunk
+// the edge bits (O rows) and the boundary bits (KB rows), unread when
+// NC = 0; deltas [O] int32. Writes packed and act [B, V] int32 and
+// chunks [NC, B, V] int32. Returns the CUDA error code of the launch
+// (0 = success).
 extern "C" int qcss_uf_stencil_full(const int* defect, const int* tables,
+                                    const int* chunk_tables,
                                     const int* deltas, int B, int V, int O,
-                                    int KB, int L, int max_rounds,
+                                    int KB, int NC, int L, int max_rounds,
                                     int* out_packed, int* out_act,
-                                    void* stream) {
-  if (O < 1 || O > kMaxOffsets || KB < 1 || KB > kMaxBoundary || V < 1 ||
-      O + KB > 30)
+                                    int* out_chunks, void* stream) {
+  if (!qcss::stencil_shape_ok(V, O, KB) || NC < 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(6 + O + KB) * V * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      uf_stencil_full_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  if (B > 0) {
-    uf_stencil_full_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-        defect, tables, deltas, V, O, KB, L, max_rounds, out_packed,
-        out_act);
-  }
-  return (int)cudaGetLastError();
+  const size_t smem = (size_t)qcss_uf_stencil_full_smem(V, O, KB, NC);
+  const cudaError_t err =
+      NC > 0 ? launch_full<true>(defect, tables, chunk_tables, deltas, B, V,
+                                 O, KB, NC, L, max_rounds, out_packed,
+                                 out_act, out_chunks, smem,
+                                 (cudaStream_t)stream)
+             : launch_full<false>(defect, tables, chunk_tables, deltas, B, V,
+                                  O, KB, NC, L, max_rounds, out_packed,
+                                  out_act, out_chunks, smem,
+                                  (cudaStream_t)stream);
+  return (int)err;
 }

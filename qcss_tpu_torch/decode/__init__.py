@@ -1,7 +1,9 @@
 """Decoders of the port: syndrome-table decoding (`lut`), the code-capacity
 Monte Carlo (`montecarlo`, `multiround`, `sweep`), the spacetime LUT
 (`spacetime`), the circuit-level DEM (`dem`), the dense stencil decoder
-(`device_uf`) and the defect-granular sparse decoder (`device_sparse`)."""
+(`device_uf`, its staged routes in `device_uf_staged`), the defect-granular
+sparse decoder (`device_sparse`) and sliding-window streaming decoding on
+the device (`streaming`, `device_streaming`)."""
 
 from qcss_tpu_torch.decode.lut import (
     correct_errors,
@@ -21,11 +23,24 @@ from qcss_tpu_torch.decode.device_sparse import (
     make_hybrid_obs_decoder,
     make_sparse_obs_decoder,
 )
+from qcss_tpu_torch.decode.device_streaming import (
+    DeviceStreamingDecoder,
+    stream_memory_rate,
+    stream_memory_rate_dem,
+)
 from qcss_tpu_torch.decode.device_uf import make_obs_decoder
+from qcss_tpu_torch.decode.device_uf_staged import (
+    decode_stencil_fused,
+    decode_stencil_staged,
+)
 from qcss_tpu_torch.decode.spacetime import (
     detector_history,
     spacetime_check_matrix,
     spacetime_correction_lut,
+)
+from qcss_tpu_torch.decode.streaming import (
+    StreamingDecoder,
+    sample_phenomenological_stream,
 )
 from qcss_tpu_torch.decode.uf import (
     MatchingGraph,
@@ -35,11 +50,15 @@ from qcss_tpu_torch.decode.uf import (
 from qcss_tpu_torch.decode import classical
 
 __all__ = [
+    "DeviceStreamingDecoder",
     "MatchingGraph",
+    "StreamingDecoder",
     "circuit_level_graph",
     "classical",
     "correct_errors",
     "decode_corrections",
+    "decode_stencil_fused",
+    "decode_stencil_staged",
     "detect_errors",
     "detector_history",
     "error_rate_curve",
@@ -53,7 +72,10 @@ __all__ = [
     "mc_decode_step",
     "multiround_error_rate",
     "sample_depolarizing",
+    "sample_phenomenological_stream",
     "spacetime_check_matrix",
     "spacetime_correction_lut",
     "spacetime_graph",
+    "stream_memory_rate",
+    "stream_memory_rate_dem",
 ]

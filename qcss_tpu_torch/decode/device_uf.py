@@ -19,18 +19,22 @@ A cluster's label flip is the XOR of the packed lanes over its defects,
 plus one defect-to-boundary path when its defect count is odd (only
 boundary clusters end odd).
 
-What this slice ports: the graph builders (lane packing, spilling and the
-shift-stencil form), and the stencil decoder. `decode_labels` sends a
-CUDA tensor to the hand-written kernel (`device_uf_cuda`, the counterpart
-of the Mosaic `make_full_kernel`) and a CPU tensor to its plain version,
-`_decode_stencil`. Graphs that are not stencil-eligible, per-shot weights
-and iteration caps need the reference's packed/unpacked kernels, which
-are not ported yet and raise `NotImplementedError`.
+Three decoders share that state. The stencil decoder serves lattice
+graphs: `decode_labels` sends a CUDA tensor to the hand-written kernel
+(`device_uf_cuda`, the counterpart of the Mosaic `make_full_kernel`) and a
+CPU tensor to its plain version, `_stencil_plain`, spilled label lanes
+included. `_decode_packed` and `_decode_unpacked` are the generic
+incidence-table decoders (plain torch on either device, as they are plain
+XLA in the reference): they take graphs that are not stencil-eligible,
+per-shot weights and, with `_decode_stencil`, per-round iteration caps.
+The plain pieces `_prop_plain`, `_act_plain` and `_round_plain` have the
+contracts of the staged kernels (`device_uf_staged`); `_stencil_plain` is
+built from the same sweeps.
 """
 
 from __future__ import annotations
 
-from functools import partial
+from functools import cached_property, partial
 from typing import NamedTuple
 
 import numpy as np
@@ -101,15 +105,7 @@ class DeviceGraph(NamedTuple):
         return _to(self, device)
 
 
-class StencilGraph(NamedTuple):
-    """Shift-stencil representation for LATTICE decoding graphs. Eligible
-    when every internal edge connects v to v + delta for a SMALL set of
-    distinct deltas (surface spacetime graphs have 4, circuit-level DEM
-    graphs 7), no two internal edges share an endpoint pair, and boundary
-    edges number <= ``KB`` per node. Edge (o, v) is the internal edge
-    v -- v+deltas[o] where ``emask[o, v]``; boundary slot (k, v) is the
-    k-th boundary edge at v where ``bmask[k, v]``."""
-
+class _StencilFields(NamedTuple):
     deltas: tuple               # distinct positive offsets, python ints
     emask: torch.Tensor         # [O, V] bool
     ewt: torch.Tensor           # [O, V] int32
@@ -119,16 +115,54 @@ class StencilGraph(NamedTuple):
     bobs: torch.Tensor          # [KB, V] int32, packed lanes
     chunks: tuple = ()          # ChunkLanes for spilled label lanes
 
+
+class StencilGraph(_StencilFields):
+    """Shift-stencil representation for LATTICE decoding graphs. Eligible
+    when every internal edge connects v to v + delta for a SMALL set of
+    distinct deltas (surface spacetime graphs have 4, circuit-level DEM
+    graphs 7), no two internal edges share an endpoint pair, and boundary
+    edges number <= ``KB`` per node. Edge (o, v) is the internal edge
+    v -- v+deltas[o] where ``emask[o, v]``; boundary slot (k, v) is the
+    k-th boundary edge at v where ``bmask[k, v]``.
+
+    The ``kernel_*`` properties are the same tables in the layout the
+    stencil kernels read, built once per placed graph (`to` makes a new
+    graph, whose tables are built on its device at first use)."""
+
     def to(self, device) -> "StencilGraph":
         return _to(self, device)
+
+    @cached_property
+    def kernel_tables(self) -> torch.Tensor:
+        """[3*O + 3*KB, V] int32: emask, ewt, eobs, bmask, bwt, bobs."""
+        return torch.cat([self.emask.to(torch.int32), self.ewt, self.eobs,
+                          self.bmask.to(torch.int32), self.bwt, self.bobs]
+                         ).to(torch.int32).contiguous()
+
+    @cached_property
+    def kernel_chunk_tables(self) -> torch.Tensor:
+        """[NC, O + KB, V] int32: per chunk its edge bits, then its
+        boundary bits."""
+        O, V = self.emask.shape
+        if not self.chunks:
+            return torch.zeros((0, O + self.bmask.shape[0], V),
+                               dtype=torch.int32, device=self.emask.device)
+        return torch.stack([torch.cat([c.eobs, c.bobs]) for c in self.chunks]
+                           ).to(torch.int32).contiguous()
+
+    @cached_property
+    def kernel_deltas(self) -> torch.Tensor:
+        """[O] int32, on the tables' device."""
+        return torch.as_tensor(self.deltas, dtype=torch.int32,
+                               device=self.emask.device)
 
 
 class ChunkLanes(NamedTuple):
     """Label lanes that did not fit in the packed word (lane spilling,
     `build_device_graph(spill_lanes=True)`). Up to 30 bits of spilled
-    lanes per chunk. The reference resolves them after convergence by
-    XOR-spreading each chunk down the adoption forest; that path is not
-    ported yet (see `decode_labels`)."""
+    lanes per chunk. The stencil decode carries one word per vertex and
+    chunk along with the labels: the XOR of the chunk's edge bits down the
+    adoption forest, which the reference spreads after convergence."""
 
     eobs: torch.Tensor          # [O, V] int32, this chunk's edge bits
     bobs: torch.Tensor          # [KB, V] int32
@@ -418,35 +452,48 @@ def decode_labels(dg: DeviceGraph, detectors, shot_weights=None):
     detectors: [B, num_nodes] 0/1 (any integer dtype). Returns (labels —
     a tuple of [B] int32 tensors, one per label lane — and converged [B]
     bool). converged is False for a shot only if the growth-round cap was
-    hit. ``dg`` must live on the same device as ``detectors``.
+    hit or a per-round iteration cap (``prop_cap`` / ``act_cap`` in
+    `build_device_graph`) cut its fixpoint short. ``dg`` must live on the
+    same device as ``detectors``.
 
-    A CUDA tensor goes to the hand-written kernel (`device_uf_cuda`); a
-    CPU tensor to its plain version, `_decode_stencil`. There is no other
-    route: what the kernel does not take raises.
+    ``shot_weights`` ([B, E] int32, values >= 1) overrides the static
+    growth saturations per shot (heralded erasure, soft readout); it runs
+    on the packed or unpacked decoder, since the stencil tables bake the
+    weights in.
+
+    The routes are the reference's. A stencil graph without caps goes to
+    the hand-written kernel (`device_uf_cuda`) for a CUDA tensor and to its
+    plain version, `_stencil_plain`, for a CPU tensor. That holds for a
+    graph with spilled lanes too: off the TPU the reference decodes those
+    with `_decode_unpacked`, but a kernel's plain version is the same
+    function as the kernel, so here the CPU resolves the chunks as the
+    card does. With caps, a stencil graph runs `_decode_stencil` (or
+    `_decode_unpacked` when lanes are spilled); any other graph runs
+    `_decode_packed` when its lanes fit one word, else `_decode_unpacked`.
     """
-    if shot_weights is not None:
-        raise NotImplementedError(
-            "shot_weights run on the packed/unpacked kernels, which are not "
-            "ported yet (ROADMAP.md, queue 1, slice 4)")
-    if dg.stencil is None:
-        raise NotImplementedError(
-            "graph is not stencil-eligible; the packed/unpacked kernels it "
-            "needs are not ported yet (ROADMAP.md, queue 1, slice 4)")
-    if dg.prop_cap is not None or dg.act_cap is not None:
-        raise NotImplementedError(
-            "iteration caps run on the packed/unpacked kernels, which are "
-            "not ported yet (ROADMAP.md, queue 1, slice 4)")
     if not isinstance(detectors, torch.Tensor):
         detectors = torch.as_tensor(np.asarray(detectors))
-    if detectors.is_cuda:
-        from qcss_tpu_torch.decode.device_uf_cuda import decode_stencil_cuda
+    st = dg.stencil
+    if shot_weights is not None:
+        if dg.pack_shift is not None and not (st is not None and st.chunks):
+            return _decode_packed(dg, detectors, shot_weights)
+        return _decode_unpacked(dg, detectors, shot_weights)
+    if st is not None:
+        if dg.prop_cap is None and dg.act_cap is None:
+            if detectors.is_cuda:
+                from qcss_tpu_torch.decode.device_uf_cuda import (
+                    decode_stencil_cuda,
+                )
 
-        return decode_stencil_cuda(dg, detectors)
-    if dg.stencil.chunks:
-        raise NotImplementedError(
-            "spilled label lanes decode through the unpacked kernel on the "
-            "CPU, which is not ported yet (ROADMAP.md, queue 1, slice 4)")
-    return _decode_stencil(dg, detectors)
+                return decode_stencil_cuda(dg, detectors)
+            defect = stencil_defect(dg, detectors)
+            return _stencil_labels(dg, defect, *_stencil_plain(dg, defect))
+        if st.chunks:
+            return _decode_unpacked(dg, detectors)
+        return _decode_stencil(dg, detectors)
+    if dg.pack_shift is not None:
+        return _decode_packed(dg, detectors)
+    return _decode_unpacked(dg, detectors)
 
 
 def stencil_defect(dg: DeviceGraph, detectors: torch.Tensor) -> torch.Tensor:
@@ -457,6 +504,9 @@ def stencil_defect(dg: DeviceGraph, detectors: torch.Tensor) -> torch.Tensor:
         [detectors.to(torch.int32) & 1,
          torch.zeros((B, 1), dtype=torch.int32, device=detectors.device)],
         dim=1).contiguous()
+
+
+_BIG = 2**30
 
 
 def _shift_dn(x, d, fill):
@@ -473,143 +523,531 @@ def _shift_up(x, d, fill):
     return torch.cat([pad, x[:, :x.shape[1] - d]], dim=1)
 
 
-def _stencil_plain(dg: DeviceGraph, defect: torch.Tensor):
-    """The plain version of the stencil kernel (`device_uf_cuda.stencil_full`):
-    defect [B, V] int32 -> (packed [B, V] int32, act [B, V] int32), the
-    final labels and activity. A line-for-line port of the reference's
-    XLA `_decode_stencil` loop: Jacobi propagation sweeps, the cluster
-    parity by a scatter-add, and a batch-wide round loop that ends when no
-    shot is active or nothing grew. Each fixpoint test is a host sync."""
+def _capped_while(body, state, cap):
+    """Run ``body`` (state -> (state, changed_shot [B] bool)) until no shot
+    changed, or for ``cap`` iterations. Returns (state, suspect [B]) where
+    suspect marks the shots still changing when the cap cut the loop
+    (all False when cap is None). Each test of the loop is a host read."""
+    B = state[0].shape[0]
+    if cap is None:
+        while True:
+            state, changed = body(state)
+            if not bool(changed.any()):
+                return state, torch.zeros(B, dtype=torch.bool,
+                                          device=state[0].device)
+    changed = torch.ones(B, dtype=torch.bool, device=state[0].device)
+    k = 0
+    while k < cap and bool(changed.any()):
+        state, changed = body(state)
+        k += 1
+    return state, changed
+
+
+def _propagate(dg: DeviceGraph, packed, satm, satb, chunk_vals=(), cap=None):
+    """Label propagation to the fixpoint over the saturated edges, by
+    Jacobi sweeps. packed [B, V] int32, satm [B, O, V] and satb [B, KB, V]
+    bool. ``chunk_vals`` (one [B, V] int32 per spilled chunk) travel with
+    the labels: on adoption a vertex copies its parent's word XOR the
+    adopted edge's chunk bits, and among equal candidates the first wins
+    in the reference's order (per offset v+d then v-d, then the hub's
+    slots); the hub takes its word from the first slot that offers its
+    minimum and, within it, the smallest vertex. Returns (packed,
+    chunk_vals, still [B]): still marks the shots ``cap`` cut short."""
     st = dg.stencil
-    B, V = defect.shape
     bn = dg.num_nodes
     L = dg.pack_shift
+    KB = st.bmask.shape[0]
+    V = packed.shape[1]
+    vids = torch.arange(V, dtype=torch.int32, device=packed.device)[None, :]
+
+    def body(state):
+        packed, vals = state
+        cands = []
+        for o, d in enumerate(st.deltas):
+            eobs = st.eobs[o][None, :]
+            m = satm[:, o]
+            offered = torch.where(m, packed ^ eobs, _BIG)
+            cands.append(torch.where(
+                m, _shift_dn(packed, d, _BIG) ^ eobs, _BIG))
+            cands.append(_shift_up(offered, d, _BIG))
+        hub = packed[:, bn][:, None]
+        for k in range(KB):
+            cands.append(torch.where(satb[:, k], hub ^ st.bobs[k][None, :],
+                                     _BIG))
+        cand = cands[0]
+        for c in cands[1:]:
+            cand = torch.minimum(cand, c)
+        adopted = (cand >> L) < (packed >> L)
+        new = torch.where(adopted, cand, packed)
+        # hub adoption: min over every saturated boundary slot
+        hub_cands = [torch.where(satb[:, k], packed ^ st.bobs[k][None, :],
+                                 _BIG) for k in range(KB)]
+        hub_cand = torch.stack([h.amin(dim=1) for h in hub_cands]).amin(dim=0)
+        adopted_b = (hub_cand >> L) < (packed[:, bn] >> L)
+        new[:, bn] = torch.where(adopted_b, hub_cand, new[:, bn])
+        if vals:
+            best_v = torch.zeros_like(hub_cand)
+            best_k = torch.zeros_like(hub_cand)
+            found = torch.zeros_like(adopted_b)
+            for k in range(KB):
+                match = satb[:, k] & (hub_cands[k] == hub_cand[:, None])
+                mv = torch.where(match, vids, _BIG).amin(dim=1)
+                hit = ~found & (mv < _BIG)
+                best_v = torch.where(hit, mv, best_v)
+                best_k = torch.where(hit, k, best_k)
+                found = found | hit
+            best_v, best_k = best_v.long(), best_k.long()
+            new_vals = []
+            for chunk, val in zip(st.chunks, vals):
+                offers = []
+                for o, d in enumerate(st.deltas):
+                    bits = chunk.eobs[o][None, :]
+                    offers.append(_shift_dn(val, d, 0) ^ bits)
+                    offers.append(_shift_up(val ^ bits, d, 0))
+                hub_word = val[:, bn][:, None]
+                for k in range(KB):
+                    offers.append(hub_word ^ chunk.bobs[k][None, :])
+                won = torch.zeros_like(val)
+                for c, offer in zip(reversed(cands), reversed(offers)):
+                    won = torch.where(c == cand, offer, won)
+                new_val = torch.where(adopted, won, val)
+                provider = (val.gather(1, best_v[:, None])[:, 0]
+                            ^ chunk.bobs[best_k, best_v])
+                new_val[:, bn] = torch.where(adopted_b, provider, val[:, bn])
+                new_vals.append(new_val)
+            vals = tuple(new_vals)
+        return (new, vals), adopted.any(dim=1) | adopted_b
+
+    (packed, vals), still = _capped_while(body, (packed, tuple(chunk_vals)),
+                                          cap)
+    return packed, vals, still
+
+
+def _prop_plain(dg: DeviceGraph, packed, satm, satb):
+    """The plain version of the propagation kernel
+    (`device_uf_cuda.stencil_prop`; the reference's `make_prop_kernel`):
+    packed [B, V] int32, satm [B, O, V] bool, satb [B, KB, V] bool ->
+    packed [B, V] int32 at the fixpoint."""
+    return _propagate(dg, packed, satm.bool(), satb.bool())[0]
+
+
+def _spread(dg: DeviceGraph, act, passes, cap=None):
+    """Activity OR-fixpoint: act [B, V] int32 0/1 spreads both ways over
+    the edges whose passes [B, O, V] bool is set. Returns (act, still)."""
+    st = dg.stencil
+
+    def body(state):
+        (act,) = state
+        new = act
+        for o, d in enumerate(st.deltas):
+            po = passes[:, o]
+            new = new | (_shift_dn(act, d, 0) & po) | _shift_up(act & po, d, 0)
+        return (new,), (new != act).any(dim=1)
+
+    (act,), still = _capped_while(body, (act,), cap)
+    return act, still
+
+
+def _act_plain(dg: DeviceGraph, act, passes):
+    """The plain version of the activity kernel
+    (`device_uf_cuda.stencil_act`; the reference's `make_act_kernel`):
+    act [B, V] int32 0/1, passes [B, O, V] bool (any dtype is read as
+    != 0) -> act [B, V] int32 at the fixpoint."""
+    return _spread(dg, (act != 0).to(torch.int32), passes != 0)[0]
+
+
+def _grow_step(dg: DeviceGraph, packed, act, sup, supb):
+    """One delta-stepped growth step: every growable edge of an active
+    cluster advances by the shot's minimum slack, so that some edge
+    saturates. act [B, V] int32 0/1; sup [B, O, V], supb [B, KB, V] int32.
+    Returns (sup, supb, grew [B, V] int32: 1 where an edge or boundary slot
+    at v grew)."""
+    st = dg.stencil
+    bn = dg.num_nodes
+    comp = packed >> dg.pack_shift
+    KB = st.bmask.shape[0]
+    incs = []
+    for o, d in enumerate(st.deltas):
+        growable = (st.emask[o][None, :] & (sup[:, o] < st.ewt[o])
+                    & (comp != _shift_dn(comp, d, -1)))
+        incs.append(torch.where(growable, act + _shift_dn(act, d, 0), 0))
+    inc = torch.stack(incs, dim=1)  # [B, O, V]
+    comp_bn = comp[:, bn][:, None]
+    incb = torch.stack([
+        torch.where(st.bmask[k][None, :] & (supb[:, k] < st.bwt[k])
+                    & (comp != comp_bn), act, 0)
+        for k in range(KB)
+    ], dim=1)  # [B, KB, V]
+
+    def ceil_steps(wt, s, n):
+        # ceil((wt - s) / n) where n > 0 (wt > s there), BIG elsewhere
+        q = -torch.div(-(wt - s), torch.clamp(n, min=1),
+                       rounding_mode="floor")
+        return torch.where(n > 0, q, _BIG).amin(dim=(1, 2))
+
+    slack = torch.minimum(ceil_steps(st.ewt[None], sup, inc),
+                          ceil_steps(st.bwt[None], supb, incb))
+    delta = torch.clamp(slack, min=1)
+    delta = torch.where(delta >= _BIG, 1, delta)[:, None, None]
+    grew = ((inc > 0).any(dim=1) | (incb > 0).any(dim=1)).to(torch.int32)
+    return sup + inc * delta, supb + incb * delta, grew
+
+
+def _saturated(dg: DeviceGraph, sup, supb):
+    """(satm [B, O, V], satb [B, KB, V]) bool: the edges and boundary slots
+    whose support reached their weight."""
+    st = dg.stencil
+    return ((sup >= st.ewt[None]) & st.emask[None],
+            (supb >= st.bwt[None]) & st.bmask[None])
+
+
+def _cluster_passes(dg: DeviceGraph, packed, satm):
+    """passes [B, O, V] bool: the saturated edges inside one cluster,
+    over which activity spreads."""
+    comp = packed >> dg.pack_shift
+    return torch.stack(
+        [satm[:, o] & (comp == _shift_dn(comp, d, -1))
+         for o, d in enumerate(dg.stencil.deltas)], dim=1)
+
+
+def _scatter_parity(comp, defect, bn):
+    """[B, V] bool, True at the representative of every cluster that holds
+    an odd number of defects and not the boundary hub (one scatter-add of
+    the defects onto their representatives)."""
+    V = comp.shape[1]
+    vids = torch.arange(V, dtype=torch.int32, device=comp.device)[None, :]
+    cnt = torch.zeros_like(defect)
+    cnt.scatter_add_(1, comp.long(), defect)
+    act_root = ((cnt & 1) == 1) & (vids != comp[:, bn][:, None])
+    return act_root & (comp == vids)
+
+
+def parity_seeds(dg: DeviceGraph, packed, defect):
+    """seed [B, V] int32 0/1: the activity seeds of the packed labels, 1 at
+    the representative of every odd cluster away from the hub."""
+    return _scatter_parity(packed >> dg.pack_shift, defect,
+                           dg.num_nodes).to(torch.int32)
+
+
+def _round_plain(dg: DeviceGraph, packed, seed, sups, supbs):
+    """The plain version of the growth-round kernel
+    (`device_uf_cuda.stencil_round`; the reference's `make_round_kernel`):
+    the activity spread from the parity seeds, one delta-stepped growth
+    step, and label propagation to the fixpoint. packed, seed [B, V] int32;
+    sups [B, O, V], supbs [B, KB, V] int32. Returns (packed, sups, supbs,
+    grew [B, V] int32)."""
+    satm, _ = _saturated(dg, sups, supbs)
+    act = _act_plain(dg, seed, _cluster_passes(dg, packed, satm))
+    sups, supbs, grew = _grow_step(dg, packed, act, sups, supbs)
+    packed = _prop_plain(dg, packed, *_saturated(dg, sups, supbs))
+    return packed, sups, supbs, grew
+
+
+def initial_labels(dg: DeviceGraph, B: int, device) -> torch.Tensor:
+    """packed [B, V] int32 with every vertex its own cluster."""
+    V = dg.num_nodes + 1
+    return (torch.arange(V, dtype=torch.int32, device=device)
+            << dg.pack_shift)[None, :].expand(B, V).clone()
+
+
+def _stencil_rounds(dg: DeviceGraph, defect, prop_cap=None, act_cap=None):
+    """The stencil decode's round loop: growth, propagation, cluster
+    parity by a scatter-add, activity. Batch-wide: it ends when no shot is
+    active or nothing grew (a quiet shot does not change meanwhile).
+    Returns (packed, act, chunk_vals, suspect [B])."""
+    st = dg.stencil
+    B, V = defect.shape
     O = len(st.deltas)
     KB = st.bmask.shape[0]
     dev = defect.device
-    vids = torch.arange(V, dtype=torch.int32, device=dev)[None, :]
-    BIG = 2**30
-
-    def propagate(packed, satm, satb):
-        while True:
-            cands = []
-            for o, d in enumerate(st.deltas):
-                eobs = st.eobs[o][None, :]
-                offered = torch.where(satm[o], packed ^ eobs, BIG)
-                cands.append(torch.where(
-                    satm[o], _shift_dn(packed, d, BIG) ^ eobs, BIG))
-                cands.append(_shift_up(offered, d, BIG))
-            hub = packed[:, bn][:, None]
-            for k in range(KB):
-                cands.append(torch.where(satb[k], hub ^ st.bobs[k][None, :],
-                                         BIG))
-            cand = cands[0]
-            for c in cands[1:]:
-                cand = torch.minimum(cand, c)
-            adopted = (cand >> L) < (packed >> L)
-            new = torch.where(adopted, cand, packed)
-            # hub adoption: min over every saturated boundary slot
-            hub_cand = torch.stack([
-                torch.where(satb[k], packed ^ st.bobs[k][None, :], BIG)
-                .amin(dim=1) for k in range(KB)]).amin(dim=0)
-            adopted_b = (hub_cand >> L) < (new[:, bn] >> L)
-            new[:, bn] = torch.where(adopted_b, hub_cand, new[:, bn])
-            packed = new
-            if not bool((adopted.any(dim=1) | adopted_b).any()):
-                return packed
-
-    def activity(packed, satm):
-        comp = packed >> L
-        cnt = torch.zeros((B, V), dtype=torch.int32, device=dev)
-        cnt.scatter_add_(1, comp.long(), defect)
-        broot = comp[:, bn]
-        act_root = ((cnt & 1) == 1) & (vids != broot[:, None])
-        act = act_root & (comp == vids)  # defined at representatives
-        passes = [satm[o] & (comp == _shift_dn(comp, d, -1))
-                  for o, d in enumerate(st.deltas)]
-        while True:
-            new = act
-            for o, d in enumerate(st.deltas):
-                new = (new | (_shift_dn(act, d, False) & passes[o])
-                       | _shift_up(act & passes[o], d, False))
-            grew_act = bool((new & ~act).any())
-            act = new
-            if not grew_act:
-                return act
-
-    packed = (torch.arange(V, dtype=torch.int32, device=dev) << L)[None, :] \
-        .expand(B, V).clone()
+    packed = initial_labels(dg, B, dev)
     sup = torch.zeros((B, O, V), dtype=torch.int32, device=dev)
     supb = torch.zeros((B, KB, V), dtype=torch.int32, device=dev)
-    act = defect != 0
+    vals = tuple(torch.zeros_like(defect) for _ in st.chunks)
+    suspect = torch.zeros(B, dtype=torch.bool, device=dev)
+    act = defect
     active = bool(act.any())
     i = 0
     while active and i < dg.max_rounds:
-        comp = packed >> L
-        act_i = act.to(torch.int32)
-        incs = []
-        for o, d in enumerate(st.deltas):
-            growable = (st.emask[o][None, :] & (sup[:, o] < st.ewt[o])
-                        & (comp != _shift_dn(comp, d, -1)))
-            incs.append(torch.where(
-                growable, act_i + _shift_dn(act_i, d, 0), 0))
-        inc = torch.stack(incs, dim=1)  # [B, O, V]
-        comp_bn = comp[:, bn][:, None]
-        incb = torch.stack([
-            torch.where(st.bmask[k][None, :] & (supb[:, k] < st.bwt[k])
-                        & (comp != comp_bn), act_i, 0)
-            for k in range(KB)
-        ], dim=1)  # [B, KB, V]
-
-        def ceil_steps(wt, s, n):
-            # ceil((wt - s) / n) where n > 0 (wt > s there), BIG elsewhere
-            q = -torch.div(-(wt - s), torch.clamp(n, min=1),
-                           rounding_mode="floor")
-            return torch.where(n > 0, q, BIG).amin(dim=(1, 2))
-
-        slack = torch.minimum(ceil_steps(st.ewt[None], sup, inc),
-                              ceil_steps(st.bwt[None], supb, incb))
-        delta = torch.clamp(slack, min=1)
-        delta = torch.where(delta >= BIG, 1, delta)[:, None, None]
-        sup = sup + inc * delta
-        supb = supb + incb * delta
-        grew = bool((inc > 0).any() | (incb > 0).any())
-        satm = [(sup[:, o] >= st.ewt[o]) & st.emask[o][None, :]
-                for o in range(O)]
-        satb = [(supb[:, k] >= st.bwt[k]) & st.bmask[k][None, :]
-                for k in range(KB)]
-        packed = propagate(packed, satm, satb)
-        act = activity(packed, satm)
-        active = bool(act.any()) and grew
+        sup, supb, grew = _grow_step(dg, packed, act, sup, supb)
+        satm, satb = _saturated(dg, sup, supb)
+        packed, vals, still_p = _propagate(dg, packed, satm, satb, vals,
+                                           prop_cap)
+        act, still_a = _spread(dg, parity_seeds(dg, packed, defect),
+                               _cluster_passes(dg, packed, satm), act_cap)
+        suspect = suspect | still_p | still_a
+        # shots a cap cut short are frozen: their labels are not to be
+        # trusted, and they must not gate the batch
+        act = torch.where(suspect[:, None], 0, act)
+        active = bool(act.any() & grew.any())
         i += 1
-    return packed, act.to(torch.int32)
+    return packed, act, vals, suspect
 
 
-def _stencil_labels(dg: DeviceGraph, defect, packed, act):
+def _stencil_plain(dg: DeviceGraph, defect: torch.Tensor):
+    """The plain version of the stencil kernel (`device_uf_cuda.stencil_full`):
+    defect [B, V] int32 -> (packed [B, V] int32, act [B, V] int32,
+    chunk_vals: one [B, V] int32 per spilled chunk), the final labels,
+    activity and forest-path chunk words. The reference's XLA
+    `_decode_stencil` loop, built from the same sweeps as `_prop_plain`,
+    `_act_plain` and `_round_plain`; each fixpoint test is a host sync."""
+    return _stencil_rounds(dg, defect)[:3]
+
+
+def _stencil_labels(dg: DeviceGraph, defect, packed, act, chunk_vals=()):
     """Label lanes and convergence from the stencil decode's final state,
-    shared by the kernel and its plain version: the XOR of the packed
-    lanes over defects, plus the hub's lanes when the boundary cluster
-    holds an odd number of defects."""
+    shared by the kernel and its plain version: per lane the XOR of its
+    bits over the defects, plus the hub's when the boundary cluster holds
+    an odd number of defects. Packed lanes are read from the packed word,
+    spilled lanes from their chunk's word; the labels come back in the
+    order of the lanes' ids."""
     bn = dg.num_nodes
     L = dg.pack_shift
     lane_bits = (1 << L) - 1
+    is_defect = defect != 0
     broot = packed[:, bn] >> L
     in_bc = (packed >> L) == broot[:, None]
-    bc_odd = torch.where(in_bc, defect, 0).sum(dim=1) & 1
-    masked = torch.where(defect != 0, packed & lane_bits, 0)
-    tot = xor_reduce(masked)
-    tot = tot ^ torch.where(bc_odd == 1, packed[:, bn] & lane_bits, 0)
-    labels = tuple(((tot >> off) & mask).to(torch.int32)
-                   for off, mask in zip(dg.lane_offsets, dg.lane_masks))
+    bc_odd = (torch.where(in_bc, defect, 0).sum(dim=1) & 1) == 1
+
+    def total(words):
+        tot = xor_reduce(torch.where(is_defect, words, 0))
+        return tot ^ torch.where(bc_odd, words[:, bn], 0)
+
+    chunks = dg.stencil.chunks if dg.stencil is not None else ()
+    packed_ids = dg.packed_lane_ids or tuple(range(len(dg.lane_offsets)))
+    by_id = [None] * (len(packed_ids) + sum(len(c.lane_ids) for c in chunks))
+    tot = total(packed & lane_bits)
+    for lane_id, off, mask in zip(packed_ids, dg.lane_offsets,
+                                  dg.lane_masks):
+        by_id[lane_id] = ((tot >> off) & mask).to(torch.int32)
+    for chunk, val in zip(chunks, chunk_vals):
+        ctot = total(val)
+        for lane_id, off, mask in zip(chunk.lane_ids, chunk.offsets,
+                                      chunk.masks):
+            by_id[lane_id] = ((ctot >> off) & mask).to(torch.int32)
     converged = ~(act != 0).any(dim=1)
-    return labels, converged
+    return tuple(by_id), converged
 
 
 def _decode_stencil(dg: DeviceGraph, detectors):
-    """Plain stencil decode: `decode_labels` for a CPU tensor."""
+    """Stencil decode in plain torch on the detectors' device, honouring
+    ``prop_cap`` / ``act_cap`` (the reference's XLA `_decode_stencil`):
+    shots a cap cut short report converged False. Chunk graphs do not come
+    here with caps (`decode_labels`)."""
     defect = stencil_defect(dg, detectors)
-    packed, act = _stencil_plain(dg, defect)
-    return _stencil_labels(dg, defect, packed, act)
+    packed, act, vals, suspect = _stencil_rounds(dg, defect, dg.prop_cap,
+                                                 dg.act_cap)
+    labels, converged = _stencil_labels(dg, defect, packed, act, vals)
+    return labels, converged & ~suspect
+
+
+def _grow_edges(support, wtB, comp_eu, comp_ev, au, av):
+    """Delta-stepped growth over an explicit edge list: support [B, E]
+    advanced by the per-shot minimum slack. Returns (support, grew: a
+    0-dim bool tensor, whether any edge of the batch grew)."""
+    grow = (support < wtB) & (comp_eu != comp_ev)
+    inc = torch.where(grow, au + av, 0)
+    q = -torch.div(-(wtB - support), torch.clamp(inc, min=1),
+                   rounding_mode="floor")
+    slack = torch.where(inc > 0, q, _BIG)
+    delta = torch.clamp(slack.amin(dim=1, keepdim=True), min=1)
+    delta = torch.where(delta >= _BIG, 1, delta)
+    return support + inc * delta, (inc > 0).any()
+
+
+def _decode_packed(dg: DeviceGraph, detectors, shot_weights=None):
+    """Packed-label decoder over the incidence tables, for any graph whose
+    lanes fit beside comp in an int32: per-slot gathers reduced with a
+    minimum (an adoption is XOR + min). Plain torch on the detectors'
+    device, as the reference's is plain XLA. ``shot_weights`` ([B, E] int,
+    values >= 1) overrides the static growth saturations per shot."""
+    dets = detectors
+    dev = dets.device
+    B = dets.shape[0]
+    E = dg.eu.shape[0]
+    D = dg.inc_e.shape[1]
+    bn = dg.num_nodes
+    L = dg.pack_shift
+    eu, ev = dg.eu.long(), dg.ev.long()
+    wtB = (dg.wt[None, :] if shot_weights is None
+           else torch.as_tensor(shot_weights, device=dev).to(torch.int32))
+    inc_cols = [dg.inc_e[:, j].long() for j in range(D)]
+    other_cols = [dg.other_v[:, j].long() for j in range(D)]
+    plab_cols = [dg.packed_inc[:, j][None, :] for j in range(D)]
+    b_other, b_edges = dg.b_other.long(), dg.b_edges.long()
+    defect = stencil_defect(dg, dets)
+    false_col = torch.zeros((B, 1), dtype=torch.bool, device=dev)
+
+    def propagate(packed, satE, satB):
+        def body(state):
+            (packed,) = state
+            cand = None
+            for j in range(D):
+                c = torch.where(satE[:, inc_cols[j]],
+                                packed[:, other_cols[j]] ^ plab_cols[j], _BIG)
+                cand = c if cand is None else torch.minimum(cand, c)
+            # adopt only on a STRICT comp improvement: an equal-comp
+            # candidate with smaller lane bits must not win, or paths keep
+            # churning toward the min-parity path
+            adopted = (cand >> L) < (packed >> L)
+            new = torch.where(adopted, cand, packed)
+            cand_b = torch.where(satB, packed[:, b_other] ^ dg.packed_b[None],
+                                 _BIG).amin(dim=1)
+            adopted_b = (cand_b >> L) < (new[:, bn] >> L)
+            new[:, bn] = torch.where(adopted_b, cand_b, new[:, bn])
+            return (new,), adopted.any(dim=1) | adopted_b
+
+        (packed,), still = _capped_while(body, (packed,), dg.prop_cap)
+        return packed, still
+
+    def activity(packed, sat):
+        comp = packed >> L
+        act = _scatter_parity(comp, defect, bn)
+        same_e = comp[:, eu] == comp[:, ev]
+        passE = torch.cat([sat & same_e, false_col], dim=1)
+        pass_cols = [passE[:, inc_cols[j]] for j in range(D)]
+
+        def body(state):
+            (act,) = state
+            new = act
+            for j in range(D):
+                new = new | (act[:, other_cols[j]] & pass_cols[j])
+            return (new,), (new & ~act).any(dim=1)
+
+        (act,), still = _capped_while(body, (act,), dg.act_cap)
+        return act, still
+
+    packed = initial_labels(dg, B, dev)
+    support = torch.zeros((B, E), dtype=torch.int32, device=dev)
+    act = defect != 0  # initial clusters are singletons
+    suspect = torch.zeros(B, dtype=torch.bool, device=dev)
+    active = bool(act.any())
+    i = 0
+    while active and i < dg.max_rounds:
+        support, grew = _grow_edges(
+            support, wtB, packed[:, eu] >> L, packed[:, ev] >> L,
+            act[:, eu].to(torch.int32), act[:, ev].to(torch.int32))
+        sat = support >= wtB
+        satE = torch.cat([sat, false_col], dim=1)
+        satB = sat[:, b_edges] & dg.b_mask[None, :]
+        packed, still_p = propagate(packed, satE, satB)
+        act, still_a = activity(packed, sat)
+        suspect = suspect | still_p | still_a
+        # freeze the shots a cap cut short: their labels are not to be
+        # trusted, and they must not gate the batch
+        act = act & ~suspect[:, None]
+        active = bool(act.any() & grew)
+        i += 1
+    labels, converged = _stencil_labels(
+        dg._replace(stencil=None), defect, packed, act.to(torch.int32))
+    return labels, converged & ~suspect
+
+
+def _decode_unpacked(dg: DeviceGraph, detectors, shot_weights=None):
+    """Generic decoder for wide label lanes (e.g. the streaming decoder's
+    carry lanes): one [B, V] parity tensor per lane, and adoptions pick
+    their delivering edge by argmin + one-hot, so all lanes travel one
+    consistent path (`torch.argmin` returns the first minimum, as
+    `jnp.argmin` does). Plain torch on the detectors' device.
+    ``shot_weights`` ([B, E] int, values >= 1) overrides the static growth
+    saturations per shot."""
+    dets = detectors
+    dev = dets.device
+    B = dets.shape[0]
+    V = dg.num_nodes + 1
+    E = dg.eu.shape[0]
+    D = dg.inc_e.shape[1]
+    bn = dg.num_nodes
+    eu, ev = dg.eu.long(), dg.ev.long()
+    wtB = (dg.wt[None, :] if shot_weights is None
+           else torch.as_tensor(shot_weights, device=dev).to(torch.int32))
+    inc_flat = dg.inc_e.reshape(-1).long()
+    other_flat = dg.other_v.reshape(-1).long()
+    b_other, b_edges = dg.b_other.long(), dg.b_edges.long()
+    defect = stencil_defect(dg, dets)
+    iota_d = torch.arange(D, device=dev)[None, None, :]
+    iota_b = torch.arange(b_edges.shape[0], device=dev)[None, :]
+
+    def gatherD(x):
+        """[B, V] -> [B, V, D] via the static incidence table."""
+        return x[:, other_flat].reshape(B, V, D)
+
+    def propagate(comp, cpar, sat, satD):
+        satB = sat[:, b_edges] & dg.b_mask[None, :]  # [B, Eb]
+
+        def body(state):
+            comp, cpar = state
+            cand = torch.where(satD, gatherD(comp), _BIG)
+            new = torch.minimum(comp, cand.amin(dim=2))
+            adopted = new < comp
+            oh = cand.argmin(dim=2)[:, :, None] == iota_d
+            new_par = []
+            for qlane, lab in zip(cpar, dg.lane_inc):
+                val = torch.where(oh, gatherD(qlane) ^ lab[None], 0).sum(
+                    dim=2, dtype=torch.int32)
+                new_par.append(torch.where(adopted, val, qlane))
+            # boundary hub: same adoption over its explicit edge list
+            cand_b = torch.where(satB, comp[:, b_other], _BIG)  # [B, Eb]
+            best_b = cand_b.amin(dim=1)
+            cur_b = new[:, bn]
+            adopted_b = best_b < cur_b
+            oh_b = cand_b.argmin(dim=1)[:, None] == iota_b
+            new[:, bn] = torch.minimum(cur_b, best_b)
+            out_par = []
+            for qlane, lab_b in zip(new_par, dg.lane_b):
+                val_b = torch.where(oh_b, qlane[:, b_other] ^ lab_b[None, :],
+                                    0).sum(dim=1, dtype=torch.int32)
+                qlane[:, bn] = torch.where(adopted_b, val_b, qlane[:, bn])
+                out_par.append(qlane)
+            return (new, tuple(out_par)), adopted.any(dim=1) | adopted_b
+
+        (comp, cpar), still = _capped_while(body, (comp, cpar), dg.prop_cap)
+        return comp, cpar, still
+
+    def activity(comp, satD):
+        act = _scatter_parity(comp, defect, bn)
+        passD = satD & (gatherD(comp) == comp[:, :, None])
+
+        def body(state):
+            (act,) = state
+            new = act | (gatherD(act) & passD).any(dim=2)
+            return (new,), (new & ~act).any(dim=1)
+
+        (act,), still = _capped_while(body, (act,), dg.act_cap)
+        return act, still
+
+    comp = torch.arange(V, dtype=torch.int32, device=dev)[None, :] \
+        .expand(B, V).clone()
+    cpar = tuple(torch.zeros((B, V), dtype=torch.int32, device=dev)
+                 for _ in dg.obs)
+    support = torch.zeros((B, E), dtype=torch.int32, device=dev)
+    act = defect != 0  # initial clusters are singletons
+    suspect = torch.zeros(B, dtype=torch.bool, device=dev)
+    false_col = torch.zeros((B, 1), dtype=torch.bool, device=dev)
+    active = bool(act.any())
+    i = 0
+    while active and i < dg.max_rounds:
+        support, grew = _grow_edges(
+            support, wtB, comp[:, eu], comp[:, ev],
+            act[:, eu].to(torch.int32), act[:, ev].to(torch.int32))
+        sat = support >= wtB
+        satD = torch.cat([sat, false_col], dim=1)[:, inc_flat] \
+            .reshape(B, V, D)
+        comp, cpar, still_p = propagate(comp, cpar, sat, satD)
+        act, still_a = activity(comp, satD)
+        suspect = suspect | still_p | still_a
+        act = act & ~suspect[:, None]
+        active = bool(act.any() & grew)
+        i += 1
+
+    is_defect = defect != 0
+    bc_odd = (torch.where(comp == comp[:, bn][:, None], defect, 0)
+              .sum(dim=1) & 1) == 1
+    labels = tuple(
+        xor_reduce(torch.where(is_defect, qlane, 0))
+        ^ torch.where(bc_odd, qlane[:, bn], 0) for qlane in cpar)
+    converged = ~act.any(dim=1) & ~suspect
+    return labels, converged
 
 
 def decode_obs(dg: DeviceGraph, detectors, shot_weights=None):
@@ -625,7 +1063,8 @@ def make_obs_decoder(graph: MatchingGraph,
                      act_cap: int | None = None,
                      device="cuda"):
     """A ``decode(detectors) -> (obs, converged)`` closure over the given
-    graph, its tensors placed on ``device`` (the card by default)."""
+    graph, its tensors placed on ``device`` (the card by default). With
+    caps, shots whose fixpoints were cut short report converged False."""
     device = resolve_device(device)
     dg = build_device_graph(graph, max_growth_rounds,
                             prop_cap=prop_cap, act_cap=act_cap)

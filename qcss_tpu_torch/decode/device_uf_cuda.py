@@ -1,13 +1,21 @@
-"""The stencil union-find kernel (`csrc/uf_stencil_full.cu`) and its
-wrapper: the counterpart of the reference's Mosaic full-decode kernel
-(`qcss_tpu.decode.device_uf_pallas.decode_stencil_pallas_full`).
+"""The stencil union-find kernels and their wrappers: the counterparts of
+the reference's Mosaic kernels in `qcss_tpu.decode.device_uf_pallas`.
 
-`stencil_full` launches the kernel: defect [B, V] -> (packed, act), the
+`stencil_full` (`csrc/uf_stencil_full.cu`, for `make_full_kernel`)
+launches the whole decode: defect [B, V] -> (packed, act, chunk_vals), the
 same final state as the plain version `device_uf._stencil_plain`.
 `decode_stencil_cuda` adds the label-lane extraction, the boundary
 cluster's odd-parity term and convergence (`device_uf._stencil_labels`).
-One block per shot exits on its own, so the TPU's tile picking and shot
-sorting have no counterpart here.
+
+`stencil_prop`, `stencil_act` and `stencil_round`
+(`csrc/uf_stencil_staged.cu`, for `make_prop_kernel`, `make_act_kernel`
+and `make_round_kernel`) are the staged forms that
+`device_uf_staged`'s decodes call once or twice per growth round; their
+plain versions are `device_uf._prop_plain`, `_act_plain`, `_round_plain`.
+
+One block per shot exits on its own, so the TPU's tile picking, batch
+padding and shot sorting have no counterpart here. Every wrapper takes
+CUDA tensors only and counts its launches.
 """
 
 from __future__ import annotations
@@ -18,51 +26,73 @@ from qcss_tpu_torch import _cuda
 
 #: kernel launches made by `stencil_full` in this process
 launches = 0
+#: those of them on a graph with spilled lanes (chunks)
+chunk_launches = 0
+#: kernel launches made by `stencil_prop`, `stencil_act`, `stencil_round`
+staged_launches = {"prop": 0, "act": 0, "round": 0}
+
+#: the most dynamic shared memory one block can have on the card (227 KB)
+MAX_SHARED_BYTES = 232448
 
 
-def _tables(st) -> torch.Tensor:
-    """[3*O + 3*KB, V] int32: emask, ewt, eobs, bmask, bwt, bobs."""
-    return torch.cat([st.emask.to(torch.int32), st.ewt, st.eobs,
-                      st.bmask.to(torch.int32), st.bwt, st.bobs]
-                     ).to(torch.int32).contiguous()
+def _check_plane(name: str, x: torch.Tensor, shape, dtype=torch.int32):
+    if not x.is_cuda:
+        raise ValueError(f"{name}: the stencil kernels take CUDA tensors")
+    if x.dtype != dtype or tuple(x.shape) != tuple(shape) \
+            or not x.is_contiguous():
+        raise ValueError(
+            f"{name} must be a contiguous {tuple(shape)} {dtype} tensor, got "
+            f"{tuple(x.shape)} {x.dtype}")
+
+
+def _stencil_args(dg, first: torch.Tensor):
+    """(st, V, O, KB, tables, deltas) of a stencil graph on ``first``'s
+    device; raises on what the kernels do not take."""
+    st = dg.stencil
+    if st is None or dg.pack_shift is None:
+        raise ValueError("the stencil kernels need a stencil-eligible graph")
+    if not first.is_cuda:
+        raise ValueError("the stencil kernels take CUDA tensors")
+    V = dg.num_nodes + 1
+    tab = st.kernel_tables
+    if tab.device != first.device or tab.shape[1] != V:
+        raise ValueError("stencil tables must be [*, V] on the input's device")
+    return st, V, len(st.deltas), st.bmask.shape[0], tab, st.kernel_deltas
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def stencil_full(dg, defect: torch.Tensor):
     """Launch the stencil kernel: defect [B, V] int32 (hub column zero) ->
-    (packed [B, V] int32, act [B, V] int32)."""
-    global launches
-    st = dg.stencil
-    if st is None or dg.pack_shift is None:
-        raise ValueError("the stencil kernel needs a stencil-eligible graph")
-    if st.chunks:
-        raise NotImplementedError(
-            "spilled label lanes (ChunkLanes) are not handled by the CUDA "
-            "stencil kernel yet (ROADMAP.md, queue 2, item 1)")
-    V = dg.num_nodes + 1
-    if not defect.is_cuda:
-        raise ValueError("stencil_full takes CUDA tensors")
-    if defect.dtype != torch.int32 or defect.dim() != 2 \
-            or defect.shape[1] != V or not defect.is_contiguous():
-        raise ValueError(
-            f"defect must be a contiguous [B, {V}] int32 tensor, got "
-            f"{tuple(defect.shape)} {defect.dtype}")
-    tab = _tables(st)
-    if tab.device != defect.device or tab.shape[1] != V:
-        raise ValueError("stencil tables must be [*, V] on the defect's device")
-    deltas = torch.as_tensor(st.deltas, dtype=torch.int32,
-                             device=defect.device)
+    (packed [B, V] int32, act [B, V] int32, chunk_vals: one [B, V] int32
+    per spilled chunk of the graph)."""
+    global launches, chunk_launches
+    st, V, O, KB, tab, deltas = _stencil_args(dg, defect)
     B = defect.shape[0]
+    _check_plane("defect", defect, (B, V))
+    NC = len(st.chunks)
+    lib = _cuda.load()
+    smem = lib.qcss_uf_stencil_full_smem(V, O, KB, NC)
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"the stencil kernel needs {smem} bytes of shared memory per "
+            f"block at V={V}, O={O}, KB={KB}, NC={NC}; the card has "
+            f"{MAX_SHARED_BYTES}")
+    ctab = st.kernel_chunk_tables if NC else tab
     packed = torch.empty_like(defect)
     act = torch.empty_like(defect)
-    lib = _cuda.load()
+    chunks = torch.empty((NC, B, V), dtype=torch.int32, device=defect.device)
     err = lib.qcss_uf_stencil_full(
-        defect.data_ptr(), tab.data_ptr(), deltas.data_ptr(), B, V,
-        len(st.deltas), st.bmask.shape[0], dg.pack_shift, dg.max_rounds,
-        packed.data_ptr(), act.data_ptr(),
-        torch.cuda.current_stream(defect.device).cuda_stream)
+        defect.data_ptr(), tab.data_ptr(), ctab.data_ptr(),
+        deltas.data_ptr(), B, V, O, KB, NC, dg.pack_shift, dg.max_rounds,
+        packed.data_ptr(), act.data_ptr(), chunks.data_ptr(),
+        _stream(defect))
     _cuda.check(err, "qcss_uf_stencil_full")
     launches += 1
-    return packed, act
+    chunk_launches += NC > 0
+    return packed, act, tuple(chunks.unbind(0))
 
 
 def decode_stencil_cuda(dg, detectors: torch.Tensor):
@@ -73,5 +103,61 @@ def decode_stencil_cuda(dg, detectors: torch.Tensor):
     )
 
     defect = stencil_defect(dg, detectors)
-    packed, act = stencil_full(dg, defect)
-    return _stencil_labels(dg, defect, packed, act)
+    return _stencil_labels(dg, defect, *stencil_full(dg, defect))
+
+
+def stencil_prop(dg, packed: torch.Tensor, satm: torch.Tensor,
+                 satb: torch.Tensor) -> torch.Tensor:
+    """Launch the propagation kernel: packed [B, V] int32, satm [B, O, V]
+    bool, satb [B, KB, V] bool -> packed [B, V] int32 at the fixpoint."""
+    _, V, O, KB, tab, deltas = _stencil_args(dg, packed)
+    B = packed.shape[0]
+    _check_plane("packed", packed, (B, V))
+    _check_plane("satm", satm, (B, O, V), torch.bool)
+    _check_plane("satb", satb, (B, KB, V), torch.bool)
+    out = torch.empty_like(packed)
+    err = _cuda.load().qcss_stencil_prop(
+        packed.data_ptr(), satm.data_ptr(), satb.data_ptr(), tab.data_ptr(),
+        deltas.data_ptr(), B, V, O, KB, dg.pack_shift, out.data_ptr(),
+        _stream(packed))
+    _cuda.check(err, "qcss_stencil_prop")
+    staged_launches["prop"] += 1
+    return out
+
+
+def stencil_act(dg, act: torch.Tensor, passes: torch.Tensor) -> torch.Tensor:
+    """Launch the activity kernel: act [B, V] int32 0/1, passes [B, O, V]
+    bool -> act [B, V] int32 at the fixpoint."""
+    _, V, O, _, _, deltas = _stencil_args(dg, act)
+    B = act.shape[0]
+    _check_plane("act", act, (B, V))
+    _check_plane("passes", passes, (B, O, V), torch.bool)
+    out = torch.empty_like(act)
+    err = _cuda.load().qcss_stencil_act(
+        act.data_ptr(), passes.data_ptr(), deltas.data_ptr(), B, V, O,
+        out.data_ptr(), _stream(act))
+    _cuda.check(err, "qcss_stencil_act")
+    staged_launches["act"] += 1
+    return out
+
+
+def stencil_round(dg, packed: torch.Tensor, seed: torch.Tensor,
+                  sup: torch.Tensor):
+    """Launch the growth-round kernel: packed, seed [B, V] int32 and sup
+    [B, O + KB, V] int32 (the O edge support planes, then the KB boundary
+    ones) -> (packed, sup, grew [B, V] int32)."""
+    _, V, O, KB, tab, deltas = _stencil_args(dg, packed)
+    B = packed.shape[0]
+    _check_plane("packed", packed, (B, V))
+    _check_plane("seed", seed, (B, V))
+    _check_plane("sup", sup, (B, O + KB, V))
+    out_packed = torch.empty_like(packed)
+    out_sup = torch.empty_like(sup)
+    grew = torch.empty_like(packed)
+    err = _cuda.load().qcss_stencil_round(
+        packed.data_ptr(), seed.data_ptr(), sup.data_ptr(), tab.data_ptr(),
+        deltas.data_ptr(), B, V, O, KB, dg.pack_shift, out_packed.data_ptr(),
+        out_sup.data_ptr(), grew.data_ptr(), _stream(packed))
+    _cuda.check(err, "qcss_stencil_round")
+    staged_launches["round"] += 1
+    return out_packed, out_sup, grew

@@ -1,0 +1,136 @@
+"""Sliding-window (streaming) decoding for unbounded-round memory (PyTorch
+port of `qcss_tpu.decode.streaming`).
+
+Whole-history decoding needs the full (R+1)·r detector record and a
+matching graph that grows with R. The forward sliding window (Dennis et
+al. 2002 §IV-C; arXiv:2209.08552) bounds both: decode W consecutive
+detector slices, COMMIT only the first C slices' correction edges, cut
+each matched chain at the commit boundary by toggling an artificial defect
+at the crossing point, then slide forward by C rounds and repeat. Memory
+and per-round work are O(W·r) regardless of R.
+
+The window graphs set ``edge_qubit = arange(E)`` and ``n_qubits = E`` (a
+host decoder's per-"qubit" correction output is then the selected-edge
+indicator vector); the device decoder reads only edges, weights and labels.
+
+Ported here: the window matching graph (`_window_graph`, numpy) and the
+long-horizon phenomenological sampler. The device decoder over these
+windows is `device_streaming.DeviceStreamingDecoder`. The host
+`StreamingDecoder` decodes each window with the host union-find
+(`UFDecoder`), which is not ported yet, and raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from qcss_tpu_torch.decode.uf import (
+    MatchingGraph,
+    graph_from_checks,
+    weights_from_probs,
+)
+from qcss_tpu_torch.ops import gf2_torch
+
+
+def _window_graph(h, logicals, slices: int, open_future: bool,
+                  p_space: float | None, p_time: float | None):
+    """Matching graph over `slices` detector slices with edge_qubit
+    re-purposed as the edge's own index (see module docstring). Returns
+    (graph, edge_meta) with edge_meta rows (kind, slice, check) where
+    kind 0 = space edge (slice = its detector slice), 1 = time edge
+    (slice t joins slices t and t+1, check = detector column),
+    2 = open-future boundary edge (slice = slices-1)."""
+    base = graph_from_checks(h, logicals)
+    r = base.num_nodes
+    edges, eobs, meta, probs = [], [], [], []
+    for t in range(slices):
+        off = t * r
+        for (a, b), o in zip(base.edges, base.edge_obs):
+            edges.append((off + a, -1 if b < 0 else off + b))
+            eobs.append(int(o))
+            meta.append((0, t, -1))
+            probs.append(p_space)
+    for t in range(slices - 1):
+        for c in range(r):
+            edges.append((t * r + c, (t + 1) * r + c))
+            eobs.append(0)
+            meta.append((1, t, c))
+            probs.append(p_time)
+    if open_future:
+        for c in range(r):
+            # a chain may exit into the unseen future at measurement-error
+            # pace; it will be re-decoded with full context next window
+            edges.append(((slices - 1) * r + c, -1))
+            eobs.append(0)
+            meta.append((2, slices - 1, c))
+            probs.append(p_time)
+    n_e = len(edges)
+    weight = None
+    if p_space is not None or p_time is not None:
+        if p_space is None or p_time is None:
+            raise ValueError("pass both p_space and p_time, or neither")
+        weight = weights_from_probs(probs)
+    graph = MatchingGraph(
+        num_nodes=slices * r,
+        edges=np.asarray(edges, dtype=np.int32).reshape(-1, 2),
+        edge_qubit=np.arange(n_e, dtype=np.int32),  # edge-indicator trick
+        edge_obs=np.asarray(eobs, dtype=np.uint32),
+        n_qubits=n_e,
+        edge_weight=weight,
+    )
+    return graph, np.asarray(meta, dtype=np.int32)
+
+
+def phenomenological_rounds(generator, cum, prev_syn, m: int, p, q, h):
+    """``m`` rounds of phenomenological noise on the generator's device:
+    per round an IID data-X layer at rate p XORed into ``cum`` [B, n], then
+    the syndrome with measurement flips at rate q. Per round the generator
+    is drawn in the order data layer [B, n], measurement flips [B, r].
+    Returns (cum, last syndrome [B, r], detectors [B, m, r] uint8)."""
+    B, n = cum.shape
+    r = h.shape[0]
+    dets = []
+    for _ in range(m):
+        cum = cum ^ (torch.rand((B, n), generator=generator,
+                                device=cum.device) < p).to(torch.uint8)
+        syn = gf2_torch.syndromes_dense(cum, h) ^ (
+            torch.rand((B, r), generator=generator, device=cum.device) < q
+        ).to(torch.uint8)
+        dets.append(syn ^ prev_syn)
+        prev_syn = syn
+    return cum, prev_syn, torch.stack(dets, dim=1)
+
+
+def sample_phenomenological_stream(generator: torch.Generator, p, q,
+                                   batch: int, rounds: int, h, lz):
+    """Long-horizon phenomenological sampler on the generator's device:
+    IID data-X layers, measurement flips, perfect final readout. Returns
+    (detectors [B, R+1, r] uint8, logical parities [B, k] uint8)."""
+    device = generator.device
+    h = torch.as_tensor(np.asarray(h, np.uint8) & 1, device=device)
+    lz = torch.as_tensor(np.asarray(lz, np.uint8) & 1, device=device)
+    r, n = h.shape
+    cum = torch.zeros((batch, n), dtype=torch.uint8, device=device)
+    syn0 = torch.zeros((batch, r), dtype=torch.uint8, device=device)
+    cum, last_syn, dets = phenomenological_rounds(generator, cum, syn0,
+                                                  rounds, p, q, h)
+    cum = cum ^ (torch.rand((batch, n), generator=generator, device=device)
+                 < p).to(torch.uint8)
+    final = gf2_torch.syndromes_dense(cum, h) ^ last_syn
+    detectors = torch.cat([dets, final[:, None, :]], dim=1)
+    return detectors, gf2_torch.mod2_matmul(cum, lz.T)
+
+
+class StreamingDecoder:
+    """Forward sliding-window decoder with HOST window decodes. It needs
+    the host union-find decoder (`UFDecoder`), which is not ported yet:
+    use `device_streaming.DeviceStreamingDecoder`."""
+
+    def __init__(self, h, logicals, *, window: int = 6, commit: int = 3,
+                 p_space: float | None = None, p_time: float | None = None,
+                 use_native: bool | None = None, n_threads: int | None = None):
+        raise NotImplementedError(
+            "StreamingDecoder decodes its windows on the host with "
+            "UFDecoder, which is not ported yet (ROADMAP.md, queue 1, "
+            "slice 3: host decoders); use DeviceStreamingDecoder")

@@ -8,7 +8,7 @@ on a machine without JAX:
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
 Comparisons are exact: each kernel reproduces its plain version bit for
-bit (packed labels, activity, obs, convergence).
+bit (packed labels, activity, chunk words, obs, convergence).
 """
 
 import numpy as np
@@ -57,12 +57,165 @@ def test_stencil_kernel_matches_plain(cuda, kind, d):
     dets = _dets(g, 2048, 0.06, seed=d, device=cuda)
     defect = tdu.stencil_defect(dg, dets)
     before = device_uf_cuda.launches
-    packed_k, act_k = device_uf_cuda.stencil_full(dg, defect)
+    packed_k, act_k, chunks_k = device_uf_cuda.stencil_full(dg, defect)
     assert device_uf_cuda.launches == before + 1
-    packed_p, act_p = tdu._stencil_plain(dg, defect)
+    packed_p, act_p, chunks_p = tdu._stencil_plain(dg, defect)
     torch.cuda.synchronize()
     assert torch.equal(packed_k, packed_p)
     assert torch.equal(act_k, act_p)
+    assert chunks_k == chunks_p == ()
+
+
+def _window_graph_with_lanes(d, seed):
+    """The mid-window graph of a sliding-window decoder (8 slices, open
+    future) with random wide label lanes, spilled into chunks."""
+    from qcss_tpu_torch.decode.streaming import _window_graph
+
+    code = rotated_surface(d)
+    g, _ = _window_graph(code.raw_parity_check_c2, code.z_operator_matrix(),
+                         8, True, 0.004, 0.01)
+    rng = np.random.default_rng(seed)
+    lanes = (rng.integers(0, 1 << 28, g.num_edges),
+             rng.integers(0, 1 << 30, g.num_edges),
+             rng.integers(0, 1 << 5, g.num_edges))
+    return g, tdu.build_device_graph(g, extra_lanes=lanes, spill_lanes=True)
+
+
+@pytest.mark.parametrize("d,B", [(3, 1), (5, 1000), (7, 2049)])
+def test_stencil_kernel_chunk_lanes_match_plain(cuda, d, B):
+    # Spilled lanes: chunk words, every lane and convergence, bit for bit,
+    # at batch sizes that are no multiple of anything.
+    from qcss_tpu_torch.decode import device_uf_cuda
+
+    g, dg = _window_graph_with_lanes(d, seed=d)
+    assert len(dg.stencil.chunks) == 2
+    dg = dg.to(cuda)
+    dets = _dets(g, B, 0.03, seed=B, device=cuda)
+    defect = tdu.stencil_defect(dg, dets)
+    before = device_uf_cuda.chunk_launches
+    out_k = device_uf_cuda.stencil_full(dg, defect)
+    assert device_uf_cuda.chunk_launches == before + 1
+    out_p = tdu._stencil_plain(dg, defect)
+    torch.cuda.synchronize()
+    assert torch.equal(out_k[0], out_p[0]) and torch.equal(out_k[1], out_p[1])
+    assert len(out_k[2]) == 2
+    for a, b in zip(out_k[2], out_p[2]):
+        assert torch.equal(a, b)
+    lab_k, conv_k = tdu.decode_labels(dg, dets)
+    lab_c, conv_c = tdu.decode_labels(dg.to("cpu"), dets.cpu())
+    assert len(lab_k) == 4
+    for a, b in zip(lab_k, lab_c):
+        assert torch.equal(a.cpu(), b)
+    assert torch.equal(conv_k.cpu(), conv_c)
+
+
+def _round_states(dg, dets, rounds):
+    """The state entering each of the first growth rounds of the fused
+    staged decode, walked with the plain pieces: (packed, seed, sup)."""
+    defect = tdu.stencil_defect(dg, dets)
+    B, V = defect.shape
+    O = len(dg.stencil.deltas)
+    KB = dg.stencil.bmask.shape[0]
+    packed = tdu.initial_labels(dg, B, defect.device)
+    sup = torch.zeros((B, O + KB, V), dtype=torch.int32, device=defect.device)
+    seed = defect
+    for _ in range(rounds):
+        yield packed, seed, sup
+        packed, sups, supbs, _ = tdu._round_plain(dg, packed, seed,
+                                                  sup[:, :O], sup[:, O:])
+        sup = torch.cat([sups, supbs], dim=1)
+        seed = tdu.parity_seeds(dg, packed, defect)
+
+
+@pytest.mark.parametrize("kind,d,B", [("dem", 3, 1), ("dem", 5, 1000),
+                                      ("spacetime", 5, 513)])
+def test_staged_kernels_match_plain(cuda, kind, d, B):
+    from qcss_tpu_torch.decode import device_uf_cuda
+
+    g = _graph(kind, d)
+    dg = tdu.build_device_graph(g).to(cuda)
+    O = len(dg.stencil.deltas)
+    dets = _dets(g, B, 0.06, seed=d + B, device=cuda)
+    before = dict(device_uf_cuda.staged_launches)
+    n = 0
+    for packed, seed, sup in _round_states(dg, dets, 3):
+        n += 1
+        # K5: one whole round
+        got = device_uf_cuda.stencil_round(dg, packed, seed, sup)
+        ref = tdu._round_plain(dg, packed, seed, sup[:, :O], sup[:, O:])
+        assert torch.equal(got[0], ref[0])
+        assert torch.equal(got[1], torch.cat([ref[1], ref[2]], dim=1))
+        assert torch.equal(got[2], ref[3])
+        # K4 and K3 on the pieces of the same round
+        satm, satb = tdu._saturated(dg, sup[:, :O], sup[:, O:])
+        passes = tdu._cluster_passes(dg, packed, satm)
+        act = device_uf_cuda.stencil_act(dg, seed, passes)
+        assert torch.equal(act, tdu._act_plain(dg, seed, passes))
+        satm, satb = tdu._saturated(dg, got[1][:, :O], got[1][:, O:])
+        satm, satb = satm.contiguous(), satb.contiguous()
+        assert torch.equal(device_uf_cuda.stencil_prop(dg, packed, satm, satb),
+                           tdu._prop_plain(dg, packed, satm, satb))
+    torch.cuda.synchronize()
+    for name in ("prop", "act", "round"):
+        assert device_uf_cuda.staged_launches[name] == before[name] + n
+
+
+@pytest.mark.parametrize("B", [1, 777])
+def test_staged_decodes_on_cuda_match_the_full_kernel(cuda, B):
+    from qcss_tpu_torch.decode import device_uf_cuda
+    from qcss_tpu_torch.decode.device_uf_staged import (
+        decode_stencil_fused,
+        decode_stencil_staged,
+    )
+
+    g = _graph("dem", 5)
+    dg = tdu.build_device_graph(g).to(cuda)
+    dets = _dets(g, B, 0.05, seed=B, device=cuda)
+    ref, conv = tdu.decode_labels(dg, dets)
+    before = dict(device_uf_cuda.staged_launches)
+    for fn in (decode_stencil_staged, decode_stencil_fused):
+        labels, c = fn(dg, dets)
+        assert torch.equal(labels[0], ref[0]) and torch.equal(c, conv)
+        lab_cpu, c_cpu = fn(dg.to("cpu"), dets.cpu())
+        assert torch.equal(labels[0].cpu(), lab_cpu[0])
+        assert torch.equal(c.cpu(), c_cpu)
+    after = device_uf_cuda.staged_launches
+    assert after["prop"] > before["prop"] and after["act"] > before["act"]
+    assert after["round"] > before["round"]
+
+
+def test_generic_decoders_on_cuda_match_cpu(cuda):
+    # argmin's first-minimum tie-break and the gathers, card against CPU
+    g = _graph("spacetime", 5)
+    rng = np.random.default_rng(5)
+    lanes = (rng.integers(0, 1 << 30, g.num_edges),)
+    dets = _dets(g, 256, 0.06, seed=9, device=cuda)
+    w = torch.as_tensor(rng.integers(1, 9, (256, g.num_edges)),
+                        dtype=torch.int32)
+    for dg, fn in ((tdu.build_device_graph(g, stencil=False),
+                    tdu._decode_packed),
+                   (tdu.build_device_graph(g, extra_lanes=lanes),
+                    tdu._decode_unpacked)):
+        for weights in (None, w):
+            lab_k, conv_k = fn(dg.to(cuda), dets,
+                               None if weights is None else weights.to(cuda))
+            lab_c, conv_c = fn(dg, dets.cpu(), weights)
+            for a, b in zip(lab_k, lab_c):
+                assert torch.equal(a.cpu(), b)
+            assert torch.equal(conv_k.cpu(), conv_c)
+
+
+def test_stream_memory_rate_on_cuda(cuda):
+    from qcss_tpu_torch.decode import device_uf_cuda
+    from qcss_tpu_torch.decode.device_streaming import stream_memory_rate
+
+    code = rotated_surface(9)  # r = 40: two carry lanes, one spilled
+    before = device_uf_cuda.chunk_launches
+    res = stream_memory_rate(code.raw_parity_check_c2,
+                             code.z_operator_matrix(), 0.004, 0.004,
+                             rounds=40, batch=2048, device=cuda)
+    assert device_uf_cuda.chunk_launches == before + 8
+    assert 0.0 <= res["logical_fail"] < 0.05
 
 
 def test_decode_labels_routes_cuda_to_kernel(cuda):
@@ -89,13 +242,19 @@ def test_stencil_wrapper_checks_inputs(cuda):
         device_uf_cuda.stencil_full(dg, bad)
     with pytest.raises(ValueError):
         device_uf_cuda.stencil_full(dg, bad.to(torch.int32)[:, :-1])
-    rng = np.random.default_rng(0)
-    wide = tdu.build_device_graph(
-        g, extra_lanes=(rng.integers(0, 1 << 28, g.num_edges),),
-        spill_lanes=True).to(cuda)
-    assert wide.stencil.chunks
-    with pytest.raises(NotImplementedError):
-        tdu.decode_obs(wide, _dets(g, 4, 0.1, seed=0, device=cuda))
+    with pytest.raises(ValueError, match="CUDA"):
+        device_uf_cuda.stencil_full(dg, bad.to(torch.int32).cpu())
+    packed = tdu.initial_labels(dg, 4, cuda)
+    sup = torch.zeros((4, len(dg.stencil.deltas) + dg.stencil.bmask.shape[0],
+                       g.num_nodes + 1), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        device_uf_cuda.stencil_round(dg, packed, packed, sup[:, :-1])
+    with pytest.raises(ValueError):
+        device_uf_cuda.stencil_act(dg, packed, sup.to(torch.int64))
+    with pytest.raises(ValueError):  # masks are bool planes, not int32
+        device_uf_cuda.stencil_prop(dg, packed, sup, sup)
+    with pytest.raises(ValueError):
+        device_uf_cuda.stencil_act(dg, packed, sup[:, :-1].contiguous())
 
 
 @pytest.mark.parametrize("d_max", [8, 16, 48])

@@ -158,23 +158,33 @@ def test_every_low_weight_error_decodes_exactly(d):
 
 
 def test_unported_routes_raise():
+    # Every route of `decode_labels` is ported: what used to raise
+    # NotImplementedError (per-shot weights, iteration caps, graphs that
+    # are not stencil-eligible, spilled lanes on the CPU) now decodes.
+    # What still raises is the host side of streaming.
     g = _port_graph(_graph("dem", 3))
     dg = tdu.build_device_graph(g)
-    dets = torch.zeros((2, g.num_nodes), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError):
-        tdu.decode_labels(dg, dets, shot_weights=torch.ones(2, g.num_edges))
-    with pytest.raises(NotImplementedError):
-        tdu.decode_labels(dg._replace(prop_cap=4), dets)
-    with pytest.raises(NotImplementedError):
-        tdu.decode_labels(dg._replace(stencil=None), dets)
     rng = np.random.default_rng(0)
+    dets = torch.as_tensor(
+        (rng.random((8, g.num_nodes)) < 0.1).astype(np.uint8))
+    ref, conv = tdu.decode_labels(dg, dets)
+    assert conv.all()
     wide = tdu.build_device_graph(
         g, extra_lanes=(rng.integers(0, 1 << 28, g.num_edges),),
         spill_lanes=True)
     assert wide.stencil.chunks
-    with pytest.raises(NotImplementedError):
-        tdu.decode_labels(wide, dets)
+    for labels, conv in (
+            tdu.decode_labels(dg, dets, shot_weights=dg.wt[None].repeat(8, 1)),
+            tdu.decode_labels(dg._replace(prop_cap=64, act_cap=64), dets),
+            tdu.decode_labels(dg._replace(stencil=None), dets),
+            tdu.decode_labels(wide, dets)):
+        assert conv.all()
+        assert torch.equal(labels[0] & 1, ref[0] & 1)
+    from qcss_tpu_torch.decode.streaming import StreamingDecoder
 
+    code = rotated_surface(3)
+    with pytest.raises(NotImplementedError):
+        StreamingDecoder(code.raw_parity_check_c2, code.z_operator_matrix())
 
 
 @pytest.mark.cuda

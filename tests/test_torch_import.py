@@ -28,7 +28,9 @@ PORT_MODULES = [
     "qcss_tpu_torch",
     "qcss_tpu_torch._cuda",
     "qcss_tpu_torch.benchmarks.device_uf_bench",
+    "qcss_tpu_torch.benchmarks.profiling",
     "qcss_tpu_torch.benchmarks.steane_mc",
+    "qcss_tpu_torch.benchmarks.stream_bench",
     "qcss_tpu_torch.benchmarks.syndrome_sweep",
     "qcss_tpu_torch.circuits",
     "qcss_tpu_torch.codes",
@@ -37,11 +39,14 @@ PORT_MODULES = [
     "qcss_tpu_torch.decode.device_sparse",
     "qcss_tpu_torch.decode.device_sparse_cuda",
     "qcss_tpu_torch.decode.device_uf",
+    "qcss_tpu_torch.decode.device_streaming",
     "qcss_tpu_torch.decode.device_uf_cuda",
+    "qcss_tpu_torch.decode.device_uf_staged",
     "qcss_tpu_torch.decode.lut",
     "qcss_tpu_torch.decode.montecarlo",
     "qcss_tpu_torch.decode.multiround",
     "qcss_tpu_torch.decode.spacetime",
+    "qcss_tpu_torch.decode.streaming",
     "qcss_tpu_torch.decode.sweep",
     "qcss_tpu_torch.experiments.memory",
     "qcss_tpu_torch.ops.cuda_gf2",
@@ -138,6 +143,7 @@ COPIED_DEFS = [
                                "x_extraction_circuit"]),
     ("decode/spacetime.py", ["spacetime_check_matrix",
                              "spacetime_correction_lut"]),
+    ("decode/streaming.py", ["_window_graph"]),
 ]
 
 
