@@ -9,9 +9,10 @@ It builds the CUDA kernels from `qcss_tpu_torch/csrc` (nvcc, sm_90a, one
 process per source) and drives the port's paths on the card: the
 circuit-level surface-code memory with sampling and decoding fused, at
 distance 11 over 11 rounds; the code-capacity Monte Carlo with the packed
-GF(2) kernels; and the unbounded-round streaming memory (sliding windows
+GF(2) kernels; the unbounded-round streaming memory (sliding windows
 on the stencil kernel, carry lanes in spilled chunks) with the staged
-routes of the same decode:
+routes of the same decode; and the stabilizer tableaus with the fused
+measurement kernel K9:
 
 1. prints the toolchain and the card;
 2. builds the kernels;
@@ -51,11 +52,24 @@ routes of the same decode:
    count against the CPU's; K1 must have launched on chunk graphs. Main
    path 5: `decode_stencil_staged` and `decode_stencil_fused` at B=16384
    on the d=11 graph; K3, K4 and K5 must have launched;
+   main path 6, the tableau slice: K9 against its plain version (the
+   scan of `tableau_packed._measure_z`) bit for bit on outcomes, x, z and
+   r, on random Clifford states at n = 7, 40, 121, 363 (B=1024) and
+   n = 720 (B=1024, the form in device memory), and on the bench's ladder
+   states, each measured-qubit list hitting both branches (the share of
+   random outcomes printed); then, counted, the tableau bench
+   (`benchmarks/tableau_bench.py`: unpacked, packed scan and K9 at
+   n = 49, 121, 363, B=4096, 32 measured qubits) and
+   `PackedEngine.measure_block` on the card against the plain version
+   and, on 64 shots, the CPU engine; K9 must have launched. Then `z_memory_experiment` and
+   `x_memory_experiment` (Steane, R=3, B=1024, seed 7) with
+   engine='tableau' must equal engine='frames' bit for bit;
 9. times each kernel, its plain version and (K6, K7) the dense matmul
    form at the main paths' shapes, beside each kernel's bound, checking
-   each timed output against the plain version's; and times one round's
-   decode at the headline's shape in the packed form the Monte Carlo
-   runs and in the reference's dense forms.
+   each timed output against the plain version's (K9 at n = 121 and 363,
+   B=4096, M=32 on the ladder state); and times one round's decode at
+   the headline's shape in the packed form the Monte Carlo runs and in
+   the reference's dense forms.
 
 Any failure exits non-zero. The last line is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
@@ -87,6 +101,18 @@ STREAM_ROUNDS = 800
 STREAM_DEM_ROUNDS = 96
 STREAM_P = 0.004
 WINDOW, COMMIT = 8, 4
+TAB_BATCH = 4096
+TAB_CHECK_BATCH = 1024
+TAB_QUBITS = (49, 121, 363)
+# K9's integer instructions, counted per word of each row a branch
+# touches: a random-branch rowsum builds the plus and minus masks (12
+# three-input logic ops), takes two popcounts, adds both into g and XORs
+# the pivot's two words in (18); the deterministic product takes
+# popc(x & z) and its sum, folds z into the local XOR, and does
+# popc(x & prefix), its sum and the running XOR for the scan (8). Every
+# measurement also tests the measured bit of every row (1 a row).
+K9_OPS_ROWSUM_WORD = 18
+K9_OPS_PRODUCT_WORD = 8
 Z999 = 3.2905
 # the least time the card could take: device memory at 3.35 TB/s (NVIDIA's
 # H100 SXM data sheet); 32-bit integer instructions at 64 lanes per SM per
@@ -232,6 +258,217 @@ def staged_inputs(duf, dg, state):
     sups, supbs, _ = duf._grow_step(dg, packed, act, sup[:, :O], sup[:, O:])
     satm, satb = duf._saturated(dg, sups, supbs)
     return satm.contiguous(), satb.contiguous(), passes
+
+
+def k9_walk(tp, t, qubits, bits):
+    """K9's plain version one measurement at a time (`_measure_z`, which
+    `tableau_packed.measure_many` loops over), with what each (shot,
+    measured qubit) took: (state, outcomes, random [B, M] bool, rows
+    [B, M]) where rows counts, for a random outcome, the anticommuting rows
+    other than the pivot (the rowsums) and, for a deterministic one, the
+    selected stabilizer rows."""
+    import torch
+
+    n = t.n
+    outs, rand, rows = [], [], []
+    for m, q in enumerate(int(v) for v in qubits):
+        xq = tp._col_bit(t.x, q)
+        is_rand = (xq[:, n:] == 1).any(dim=1)
+        rows.append(torch.where(is_rand, xq.sum(1, dtype=torch.int64) - 1,
+                                xq[:, :n].sum(1, dtype=torch.int64)))
+        rand.append(is_rand)
+        t, out = tp._measure_z(t, q, bits[:, m])
+        outs.append(out)
+    return (t, torch.stack(outs, 1), torch.stack(rand, 1),
+            torch.stack(rows, 1))
+
+
+def k9_ops(t, rand, rows) -> int:
+    """K9's integer operations on a tableau for the branches the walk
+    recorded (K9_OPS_* above)."""
+    import torch
+
+    W = t.x.shape[2]
+    per_word = torch.where(rand, K9_OPS_ROWSUM_WORD, K9_OPS_PRODUCT_WORD)
+    return int((rows * per_word).sum()) * W + rand.numel() * 2 * t.n
+
+
+def k9_bytes(t, m: int) -> int:
+    """Bytes K9 must move: x, z and r in and out, the collapse bits, the
+    measured qubits and the outcomes."""
+    B, two_n, W = t.x.shape
+    return 2 * (2 * 4 * B * two_n * W + B * two_n) + 2 * B * m + 4 * m
+
+
+def random_clifford_packed(tp, Circuit, n, B, seed, device):
+    """A packed tableau after a random Clifford circuit of depth 4n (the
+    gate mix of tests/test_pallas_measure.py), and the circuit's rng."""
+    import numpy as np
+
+    names = ["I", "X", "Y", "Z", "H", "S", "CNOT", "CZ"]
+    rng = np.random.default_rng(seed)
+    circ = Circuit()
+    for _ in range(4 * n):
+        k = int(rng.integers(0, 8))
+        a, b = (int(v) for v in rng.choice(n, 2, replace=False))
+        circ.gate(names[k], *((a,) if k < 6 else (a, b)))
+    return tp.run_circuit(tp.zero_state(B, n, device), circ), rng
+
+
+def tableau_slice(dev, int_ops_per_s):
+    """Main path 6: K9 against its plain version, the tableau bench and
+    the block engine (counted), the tableau memory engine against the
+    frames engine, and K9's times and bound. Returns (K9's entry of the
+    kernels line, the bench rows, the memory results)."""
+    import numpy as np
+    import torch
+
+    from qcss_tpu_torch.benchmarks import tableau_bench
+    from qcss_tpu_torch.circuits.ir import Circuit
+    from qcss_tpu_torch.codes import families
+    from qcss_tpu_torch.experiments.memory import (
+        x_memory_experiment,
+        z_memory_experiment,
+    )
+    from qcss_tpu_torch.ftqc.engines import PackedEngine
+    from qcss_tpu_torch.sim import cuda_measure
+    from qcss_tpu_torch.sim import tableau as tb
+    from qcss_tpu_torch.sim import tableau_packed as tp
+    from qcss_tpu_torch.sim.noise import NoiseModel
+
+    def ladder(n, batch):
+        """The bench's ladder state, packed, on the card."""
+        return tp.run_circuit(tp.zero_state(batch, n, dev),
+                              tableau_bench.ladder_circuit(n))
+
+    def check(label, t, qs, seed):
+        bits = tb.collapse_bits(torch.Generator(device=dev).manual_seed(seed),
+                                t.batch, len(qs))
+        tk, ok = cuda_measure.measure_many_cuda(t, qs, bits)
+        tpl, op, rand, _ = k9_walk(tp, t, qs, bits)
+        torch.cuda.synchronize()
+        err = max(max_abs(ok, op), max_abs_words(tk.x, tpl.x),
+                  max_abs_words(tk.z, tpl.z), max_abs(tk.r, tpl.r))
+        share = float(rand.to(torch.float32).mean())
+        if err or not 0.0 < share < 1.0:
+            raise RuntimeError(f"K9 on {label}: max abs err {err} against its "
+                               f"plain version, random share {share}")
+        form = ("shared" if cuda_measure.in_shared_memory(t.n, t.words)
+                else "device")
+        log(f"K9 == plain version on {label} (B={t.batch}, M={len(qs)}, "
+            f"W={t.words}, tableau in {form} memory): outcomes, x, z, r; "
+            f"{share:.4f} of the outcomes random")
+        return err, form
+
+    # -- (a) K9 against its plain version, bit for bit
+    k9_err = 0
+    forms = set()
+    for n in (7, 40, 121, 363, 720):
+        t, rng = random_clifford_packed(tp, Circuit, n, TAB_CHECK_BATCH, n,
+                                        dev)
+        first = rng.choice(n, min(n, 24), replace=False)
+        qs = np.concatenate([first, first[:8]])  # repeats: deterministic
+        if n > 32:
+            qs[0] = 31  # bit 31 of a word
+        err, form = check(f"a random Clifford state, n={n}", t, qs, n)
+        k9_err = max(k9_err, err)
+        forms.add(form)
+    if forms != {"shared", "device"}:
+        raise RuntimeError(f"K9 ran in {forms} memory only; both forms must")
+    for n in TAB_QUBITS:
+        t = ladder(n, TAB_CHECK_BATCH)
+        qs = tableau_bench.measured_qubits(n)
+        k9_err = max(k9_err, check(f"the ladder state, n={n}", t,
+                                   np.concatenate([qs, qs[:4]]), 100 + n)[0])
+
+    # -- main path 6: the tableau bench and the block engine, counted
+    cuda_measure.launches = 0
+    t0 = time.perf_counter()
+    bench_rows = tableau_bench.run(TAB_BATCH, TAB_QUBITS, reps=3, seed=0)
+    for row in bench_rows:
+        print(json.dumps(row), flush=True)
+    eng = PackedEngine(121, 2, NoiseModel())
+    arrays = tableau_bench.ladder_circuit(121).to_arrays()
+    st = eng.zero_state(TAB_CHECK_BATCH, dev)
+    for b in range(2):
+        st = eng.run_block_circuit(st, arrays, b)
+    bits = tb.collapse_bits(torch.Generator(device=dev).manual_seed(4),
+                            TAB_CHECK_BATCH, 121)
+    got = eng.measure_block(st, 1, rand_bits=bits)
+    n_k9 = cuda_measure.launches
+    # against the plain version on the card, and the CPU engine on the
+    # first 64 shots (the CPU is slow at this size)
+    want = tp.measure_many(st, eng.block_qubits(1), rand_bits=bits)
+    cpu = eng.measure_block(tp.PackedTableau(st.x[:64].cpu(), st.z[:64].cpu(),
+                                             st.r[:64].cpu(), st.n), 1,
+                            rand_bits=bits[:64].cpu())
+    pairs = [(got[1], want[1]), (got[0].x, want[0].x), (got[0].z, want[0].z),
+             (got[0].r, want[0].r), (got[1][:64].cpu(), cpu[1]),
+             (got[0].x[:64].cpu(), cpu[0].x), (got[0].r[:64].cpu(), cpu[0].r)]
+    k9_err = max([k9_err] + [max_abs_words(a, b) for a, b in pairs])
+    if k9_err:
+        raise RuntimeError("PackedEngine.measure_block on the card disagrees "
+                           "with the plain version or the CPU engine")
+    log(f"main path 6 ({time.perf_counter() - t0:.1f} s): tableau bench at "
+        f"n={TAB_QUBITS}, B={TAB_BATCH}, and PackedEngine.measure_block "
+        f"(n=121, 2 blocks, B={TAB_CHECK_BATCH}) == the plain version and "
+        f"the CPU engine; K9 launches {n_k9}")
+    if n_k9 <= 0:
+        raise RuntimeError("K9 was never launched by main path 6")
+
+    # -- (c) the memory engines, bit for bit on the card
+    memory = {}
+    noise = NoiseModel(p_gate2=2e-3, p_meas=1e-2)
+    for basis, fn in (("z", z_memory_experiment), ("x", x_memory_experiment)):
+        res = {engine: fn(families.steane(), rounds=3, noise=noise,
+                          batch=1024, seed=7, engine=engine, device="cuda")
+               for engine in ("tableau", "frames")}
+        a, b = res["tableau"], res["frames"]
+        if (a["logical_fail"], a["residual_syndrome"]) != \
+                (b["logical_fail"], b["residual_syndrome"]) \
+                or a["logical_fail"] <= 0:
+            raise RuntimeError(f"{basis}-basis memory: the tableau engine "
+                               f"{a} disagrees with the frames engine {b}")
+        memory[basis] = a
+        log(f"{basis}_memory_experiment Steane R=3 B=1024 seed 7: tableau == "
+            f"frames, logical_fail {a['logical_fail']:.6f}, residual "
+            f"{a['residual_syndrome']:.6f}")
+
+    # -- (d) K9's times at the bench's shapes: the kernel (collapse bits
+    #    drawn beforehand), its plain version, and its bound from the
+    #    branches the walk recorded
+    entry = {}
+    for n in (121, 363):
+        t = ladder(n, TAB_BATCH)
+        qs = tableau_bench.measured_qubits(n)
+        bits = tb.collapse_bits(torch.Generator(device=dev).manual_seed(n),
+                                TAB_BATCH, len(qs))
+        tpl, op, rand, rows = k9_walk(tp, t, qs, bits)
+        tk, ok = cuda_measure.measure_many_cuda(t, qs, bits)
+        err = max(max_abs(ok, op), max_abs_words(tk.x, tpl.x),
+                  max_abs_words(tk.z, tpl.z), max_abs(tk.r, tpl.r))
+        if err:
+            raise RuntimeError(f"K9 disagrees at n={n}, B={TAB_BATCH}")
+        k9_err = max(k9_err, err)
+        ms = cuda_ms(lambda: cuda_measure.measure_many_cuda(t, qs, bits), 10)
+        plain_ms = cuda_ms(lambda: tp.measure_many(t, qs, rand_bits=bits), 2)
+        ops = k9_ops(t, rand, rows)
+        bound_ms, bound_by = bound(k9_bytes(t, len(qs)), ops, int_ops_per_s)
+        entry[n] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": None,
+                    "random_share": float(rand.to(torch.float32).mean()),
+                    "shape": f"B={TAB_BATCH} n={n} W={t.words} "
+                             f"M={len(qs)} (ladder state)"}
+        log(f"K9 n={n} B={TAB_BATCH} M={len(qs)}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+            f"{ops:.4g} integer ops, {entry[n]['random_share']:.4f} of the "
+            f"outcomes random)")
+    k9 = {"name": "chp_measure", "route": "cuda",
+          "source": "qcss_tpu_torch/csrc/chp_measure.cu",
+          "replaces": "qcss_tpu/sim/pallas_measure.py:193",
+          "launches": n_k9, "max_abs_err": k9_err, **entry[363],
+          "n121": entry[121]}
+    return k9, bench_rows, memory
 
 
 def main() -> int:
@@ -750,6 +987,9 @@ def main() -> int:
     if min(n_staged.values()) <= 0:
         raise RuntimeError("a staged kernel was never launched by its staged decode")
 
+    # -- 8d. main path 6: the stabilizer tableaus and K9
+    k9_entry, tab_rows, tab_memory = tableau_slice(dev, int_ops_per_s)
+
     # -- 9. kernel and plain-version times at the main paths' shapes
     defect_big = duf.stencil_defect(dg, dets_big)
     k1_ms = cuda_ms(lambda: device_uf_cuda.stencil_full(dg, defect_big), 5)
@@ -952,6 +1192,8 @@ def main() -> int:
                       "steane_mc": mc, "decode_forms_ms": forms,
                       "stream": stream, "stream_dem": stream_dem,
                       "staged_decode_ms": staged_ms,
+                      "tableau_bench": tab_rows,
+                      "tableau_memory": tab_memory,
                       "card": smi}), flush=True)
     lib_note = ("gf2_torch.syndromes_dense: one float32 torch.matmul with "
                 "casts, on the unpacked [B, n] bits (another layout)")
@@ -1004,6 +1246,7 @@ def main() -> int:
          "source": "qcss_tpu_torch/csrc/gf2_packed.cu",
          "replaces": "qcss_tpu/ops/pallas_gf2.py:156",
          "launches": n_k8, "max_abs_err": k8_err, **times["K8"]},
+        k9_entry,
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

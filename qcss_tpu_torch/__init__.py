@@ -12,7 +12,10 @@ sampling and decoding fused on the device
 decoder='device-dem')`, and the LUT decoders 'vote', 'difference' and
 'stlut'), and the code-capacity Monte Carlo
 (`decode.logical_error_rate`, `decode.mc_decode_rounds`) over the packed
-GF(2) kernels (`ops.cuda_gf2`). Entry points run on the card unless the
+GF(2) kernels (`ops.cuda_gf2`), the streaming memory, and the stabilizer
+tableaus with the FT executor's block engines (`sim.tableau`,
+`sim.tableau_packed`, `ftqc.engines`; the fused measurement kernel in
+`sim.cuda_measure`). Entry points run on the card unless the
 caller passes ``device='cpu'``. This package never imports jax or
 qcss_tpu.
 """

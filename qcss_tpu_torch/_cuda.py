@@ -21,12 +21,15 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 SOURCES = ("uf_stencil_full.cu", "uf_stencil_staged.cu", "sparse_growth.cu",
-           "gf2_packed.cu")
+           "gf2_packed.cu", "chp_measure.cu")
 HEADERS = ("block_reduce.cuh", "uf_stencil_common.cuh")
 BUILD_ROOT = _PKG.parent / "build" / "cuda"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = ("-shared",)
+
+#: the most dynamic shared memory one block can have on the card (227 KB)
+MAX_SHARED_BYTES = 232448
 
 _lib = None
 #: nvcc's output (ptxas register and shared-memory report) of the build
@@ -127,6 +130,12 @@ def load() -> ctypes.CDLL:
         lib.qcss_decode_residual_packed.argtypes = [
             ptr, ptr, ptr, i64, i32, i32, ptr, ptr]
         lib.qcss_decode_residual_packed.restype = i32
+        lib.qcss_chp_measure.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32, ptr, ptr, ptr,
+            ptr, ptr]
+        lib.qcss_chp_measure.restype = i32
+        lib.qcss_chp_measure_smem.argtypes = [i32, i32, i32]
+        lib.qcss_chp_measure_smem.restype = i64
         _lib = lib
     return _lib
 

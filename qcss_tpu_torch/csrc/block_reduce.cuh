@@ -25,4 +25,22 @@ __device__ __forceinline__ int block_min(int v, int* scratch) {
   return r;
 }
 
+// Sum of v over the block; the same contract as block_min.
+__device__ __forceinline__ int block_sum(int v, int* scratch) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  v = __reduce_add_sync(0xffffffffu, v);
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < (int)(blockDim.x >> 5) ? scratch[lane] : 0;
+    w = __reduce_add_sync(0xffffffffu, w);
+    if (lane == 0) scratch[32] = w;
+  }
+  __syncthreads();
+  const int r = scratch[32];
+  __syncthreads();
+  return r;
+}
+
 }  // namespace qcss

@@ -31,9 +31,6 @@ chunk_launches = 0
 #: kernel launches made by `stencil_prop`, `stencil_act`, `stencil_round`
 staged_launches = {"prop": 0, "act": 0, "round": 0}
 
-#: the most dynamic shared memory one block can have on the card (227 KB)
-MAX_SHARED_BYTES = 232448
-
 
 def _check_plane(name: str, x: torch.Tensor, shape, dtype=torch.int32):
     if not x.is_cuda:
@@ -75,11 +72,11 @@ def stencil_full(dg, defect: torch.Tensor):
     NC = len(st.chunks)
     lib = _cuda.load()
     smem = lib.qcss_uf_stencil_full_smem(V, O, KB, NC)
-    if smem > MAX_SHARED_BYTES:
+    if smem > _cuda.MAX_SHARED_BYTES:
         raise ValueError(
             f"the stencil kernel needs {smem} bytes of shared memory per "
             f"block at V={V}, O={O}, KB={KB}, NC={NC}; the card has "
-            f"{MAX_SHARED_BYTES}")
+            f"{_cuda.MAX_SHARED_BYTES}")
     ctab = st.kernel_chunk_tables if NC else tab
     packed = torch.empty_like(defect)
     act = torch.empty_like(defect)

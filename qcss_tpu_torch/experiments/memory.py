@@ -5,7 +5,8 @@ syndrome-extraction circuit (one ancilla per check, CNOT fan-in, ancilla
 measurement + reset) under circuit-level Pauli noise, then read the data
 out and decode.
 
-Ported: Pauli-frame sampling (``engine='frames'``) with
+Ported: both engines, Pauli-frame sampling (``engine='frames'``) and the
+batched stabilizer tableau (``engine='tableau'``), with
 
 * the fused device decoders: detector assembly, union-find on the device
   (``decoder='device-dem'`` on the circuit-level DEM graph,
@@ -17,8 +18,15 @@ Ported: Pauli-frame sampling (``engine='frames'``) with
   ``'stlut'`` (minimum-weight decode over the full spacetime fault set,
   one gather), which also count the residual syndromes.
 
-The tableau engine and the host decoders raise `NotImplementedError`
-naming the ROADMAP.md item that brings them.
+The host decoders raise `NotImplementedError` naming the ROADMAP.md
+item that brings them.
+
+The two engines consume the noise generator identically (per round: the
+circuit's fault bits, then the measurement flips, then the reset flips),
+and the tableau draws its measurement collapse bits from a second
+generator that the frames path never reads. So at the same seed they
+sample the same faults and give bit-identical counts, as the reference's
+engines do.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from qcss_tpu_torch.decode.spacetime import (
 from qcss_tpu_torch.ops import gf2_torch
 from qcss_tpu_torch.sim import frame as fr
 from qcss_tpu_torch.sim import noise as noise_mod
+from qcss_tpu_torch.sim import tableau as tb
 
 
 def z_extraction_circuit(code, data_offset: int = 0, anc_offset: int | None = None,
@@ -113,15 +122,57 @@ def _memory_circuit_frames(generator, batch, rounds, code, noise,
     return torch.stack(syns), word
 
 
-def _memory_fused_device(generator, batch, rounds, code, noise,
-                         extract_arrays, n_anc, decode_fn, log_row, raw_t,
-                         final_arrays=None, extract_comp=None):
-    """Sample AND decode on the device: circuit sampling, detector
-    assembly, batched union-find and failure counting. Returns two
-    device scalars (failures, all-converged)."""
-    syns, word = _memory_circuit_frames(
-        generator, batch, rounds, code, noise, extract_arrays, n_anc=n_anc,
-        final_arrays=final_arrays, extract_comp=extract_comp)
+def _memory_circuit(generator, collapse, batch, rounds, code, noise,
+                    prep_arrays, extract_arrays, n_anc, final_arrays=None):
+    """The physics on the batched tableau: noiseless eigenstate prep, R
+    noisy extraction rounds, perfect final readout (preceded by a
+    noiseless basis rotation when ``final_arrays`` is given), on the
+    generator's device. Noise is drawn from ``generator`` in the frames
+    path's order; measurement collapse bits from ``collapse``. Returns
+    (syns [R, B, n_anc], word [B, n]) uint8."""
+    n = code.n
+    n_qubits = n + n_anc
+    device = generator.device
+    anc = list(range(n, n + n_anc))
+    t = tb.zero_state(batch, n_qubits, device)
+    t = tb.run_circuit_scanned(t, *prep_arrays)
+    syns = []
+    for _ in range(rounds):  # the reference's lax.scan over rounds
+        t = noise_mod.run_arrays_noisy(t, *extract_arrays, noise, generator)
+        t, syn = tb.measure_many(t, anc, collapse)
+        if noise.p_meas:
+            syn = noise_mod.flip_bits(syn, noise.p_meas, generator)
+        t = tb.reset_many(t, anc, collapse)
+        if noise.p_reset:
+            # the frame path's reset draw (`frame.reset_qubits`)
+            xf = torch.zeros((batch, n_qubits), dtype=torch.uint8,
+                             device=device)
+            xf[:, n:] = (torch.rand((batch, n_anc), generator=generator,
+                                    device=device) < noise.p_reset
+                         ).to(torch.uint8)
+            t = tb.apply_pauli_frame(t, xf, torch.zeros_like(xf))
+        syns.append(syn)
+    if final_arrays is not None:
+        t = tb.run_circuit_scanned(t, *final_arrays)
+    _, word = tb.measure_many(t, range(n), collapse)
+    return torch.stack(syns), word
+
+
+def _collapse_generator(seed: int, device) -> torch.Generator:
+    """The tableau engine's generator of collapse bits: seeded from
+    ``seed`` but independent of the noise generator's stream."""
+    state = np.random.SeedSequence([seed, 1]).generate_state(1, np.uint64)
+    return torch.Generator(device=device).manual_seed(int(state[0]))
+
+
+def _memory_fused_device(sample, extract_arrays, n_anc, decode_fn, log_row,
+                         raw_t, final_arrays=None):
+    """Sample AND decode on the device: circuit sampling (``sample``, one
+    engine's sampler bound to its generators and settings), detector
+    assembly, batched union-find and failure counting. Returns two device
+    scalars (failures, all-converged)."""
+    syns, word = sample(extract_arrays, n_anc=n_anc,
+                        final_arrays=final_arrays)
     final_syn = gf2_torch.syndromes_dense(word, raw_t)
     dets = detector_history(syns, final_syn)
     obs, conv = decode_fn(dets)
@@ -210,10 +261,14 @@ def memory_experiment(code, *, rounds: int, noise: noise_mod.NoiseModel,
     ancillas (`x_extraction_circuit`), decode Z data errors, read out X̄
     after a noiseless transversal H.
 
-    Ported: ``engine='frames'`` with ``decoder='device-dem'``,
-    ``'device-uf'``, ``'vote'``, ``'difference'`` or ``'stlut'``. The
-    randomness is a `torch.Generator` on ``device`` seeded with ``seed``.
-    Raises RuntimeError if a union-find shot did not converge.
+    Ported: ``engine='frames'`` (Pauli-frame propagation) and
+    ``engine='tableau'`` (the batched stabilizer tableau), each with
+    ``decoder='device-dem'``, ``'device-uf'``, ``'vote'``,
+    ``'difference'`` or ``'stlut'``. The noise is drawn from a
+    `torch.Generator` on ``device`` seeded with ``seed``, identically in
+    both engines, so at one seed they give bit-identical counts; the
+    tableau's collapse bits come from a second generator derived from
+    ``seed``. Raises RuntimeError if a union-find shot did not converge.
     """
     if noise.p_idle:
         raise ValueError(
@@ -228,10 +283,6 @@ def memory_experiment(code, *, rounds: int, noise: noise_mod.NoiseModel,
         raise ValueError(f"unknown basis {basis!r}")
     if decoder == "vote" and rounds % 2 == 0:
         raise ValueError("rounds must be odd for the temporal vote")
-    if engine != "frames":
-        raise NotImplementedError(
-            "the tableau engine is not ported yet (ROADMAP.md, queue 1, "
-            "slice 6: sim/tableau.py); use engine='frames'")
     if decoder in _NOT_PORTED:
         raise NotImplementedError(
             f"decoder {decoder!r} is not ported yet (ROADMAP.md, "
@@ -246,9 +297,25 @@ def memory_experiment(code, *, rounds: int, noise: noise_mod.NoiseModel,
             fin.h(q)
         final_arrays = fin.to_arrays()
     generator = torch.Generator(device=device).manual_seed(seed)
+    if engine == "frames":
+        def sample(extract_arrays, n_anc, final_arrays):
+            comp = fr.maybe_compile(extract_arrays, code.n + n_anc)
+            return _memory_circuit_frames(
+                generator, batch, rounds, code, noise, extract_arrays,
+                n_anc=n_anc, final_arrays=final_arrays,
+                extract_comp=None if comp is None else comp.to(device))
+    else:
+        prep_arrays = (code.noisy_encode_zero() if basis == "z"
+                       else code.noisy_encode_plus()).to_arrays()
+        collapse = _collapse_generator(seed, device)
+
+        def sample(extract_arrays, n_anc, final_arrays):
+            return _memory_circuit(
+                generator, collapse, batch, rounds, code, noise, prep_arrays,
+                extract_arrays, n_anc=n_anc, final_arrays=final_arrays)
     run = _memory_lut if decoder in _LUT_DECODERS else _memory_union_find
-    fails, resid = run(code, rounds, noise, basis, batch, decoder,
-                       stlut_max_weight, ext_fn, final_arrays, generator)
+    fails, resid = run(code, rounds, noise, basis, decoder,
+                       stlut_max_weight, ext_fn, final_arrays, device, sample)
     return {
         "logical_fail": fails / batch,
         "residual_syndrome": resid / batch,
@@ -259,14 +326,15 @@ def memory_experiment(code, *, rounds: int, noise: noise_mod.NoiseModel,
     }
 
 
-def _memory_union_find(code, rounds, noise, basis, batch, decoder,
-                       stlut_max_weight, ext_fn, final_arrays, generator):
-    """The fused device decoders on the generator's device: (failures,
-    NaN). Observable-only decoders never materialize corrections, so no
-    residual-syndrome accounting exists for them."""
+def _memory_union_find(code, rounds, noise, basis, decoder,
+                       stlut_max_weight, ext_fn, final_arrays, device,
+                       sample):
+    """The fused device decoders on ``device`` over the samples of
+    ``sample``: (failures, NaN). Observable-only decoders never
+    materialize corrections, so no residual-syndrome accounting exists
+    for them."""
     from qcss_tpu_torch.decode.device_uf import make_obs_decoder
 
-    device = generator.device
     raw = (code.raw_parity_check_c2 if basis == "z"
            else code.raw_parity_check_c1)
     logicals = (code.z_operator_matrix() if basis == "z"
@@ -289,26 +357,21 @@ def _memory_union_find(code, rounds, noise, basis, batch, decoder,
 
         graph = spacetime_graph(raw, logicals, rounds)
     decode_fn = make_obs_decoder(graph, device=device)
-    extract_comp = fr.maybe_compile(extract_arrays, code.n + raw.shape[0])
-    if extract_comp is not None:
-        extract_comp = extract_comp.to(device)
     fails, conv = _memory_fused_device(
-        generator, batch, rounds, code, noise, extract_arrays,
-        n_anc=raw.shape[0], decode_fn=decode_fn,
+        sample, extract_arrays, n_anc=raw.shape[0], decode_fn=decode_fn,
         log_row=torch.as_tensor(np.asarray(logicals[0]), device=device),
         raw_t=torch.as_tensor(np.asarray(raw, np.uint8), device=device),
-        final_arrays=final_arrays, extract_comp=extract_comp)
+        final_arrays=final_arrays)
     if not bool(conv):
         raise RuntimeError("device union-find hit its growth cap")
     return int(fails), float("nan")
 
 
-def _memory_lut(code, rounds, noise, basis, batch, decoder,
-                stlut_max_weight, ext_fn, final_arrays, generator):
-    """The LUT decoders on the generator's device, over the standard-form
-    checks (the LUTs key on them): (failures, shots with a residual
-    syndrome), read back together."""
-    device = generator.device
+def _memory_lut(code, rounds, noise, basis, decoder, stlut_max_weight,
+                ext_fn, final_arrays, device, sample):
+    """The LUT decoders on ``device`` over the samples of ``sample``, with
+    the standard-form checks (the LUTs key on them): (failures, shots
+    with a residual syndrome), read back together."""
     dev = code.device.to(device)
     std_checks = code.parity_check_c2 if basis == "z" else code.parity_check_c1
     lut = dev.lut_c2 if basis == "z" else dev.lut_c1
@@ -319,15 +382,8 @@ def _memory_lut(code, rounds, noise, basis, batch, decoder,
     if decoder == "stlut":
         stlut = torch.as_tensor(spacetime_correction_lut(
             std_checks, rounds, stlut_max_weight), device=device)
-    extract_arrays = ext_fn(code).to_arrays()
-    extract_comp = fr.maybe_compile(extract_arrays,
-                                    code.n + std_checks.shape[0])
-    if extract_comp is not None:
-        extract_comp = extract_comp.to(device)
-    syns, word = _memory_circuit_frames(
-        generator, batch, rounds, code, noise, extract_arrays,
-        n_anc=std_checks.shape[0], final_arrays=final_arrays,
-        extract_comp=extract_comp)
+    syns, word = sample(ext_fn(code).to_arrays(), n_anc=std_checks.shape[0],
+                        final_arrays=final_arrays)
     counts = _decode_counts(syns, word, dev, decoder, stlut, basis)
     fails, resid = torch.stack(
         [counts["logical_fail"], counts["residual_syndrome"]]).tolist()

@@ -11,13 +11,14 @@ Soundness domain, as in the reference: the noiseless reference circuit
 has deterministic measurement outcomes, measured qubits are reset before
 reuse, and conditional operations are Pauli.
 
-The random draw is split from the arithmetic: `_sampled_fault_bits`
+The random draw is split from the arithmetic: `noise.sampled_fault_bits`
 draws every gate's fault bits ([B, 4G], four per gate in the layout of
-`compile_circuit`'s fault rows) from a `torch.Generator`, and both
+`compile_circuit`'s fault rows) from a `torch.Generator`, and both frame
 engines — the per-gate loop `run_arrays_noisy` and the matrix form
-`run_compiled_noisy` — take those bits, or draw them the same way. So the
-two engines are bit-identical on one generator state, and a test can
-hand either one the JAX package's fault bits.
+`run_compiled_noisy` — take those bits, or draw them the same way, as
+does the tableau's `noise.run_arrays_noisy`. So the engines are
+bit-identical on one generator state, and a test can hand any of them
+the JAX package's fault bits.
 
 The per-gate functions clone the frame once and then update the clone in
 place, column by column; their inputs are never modified.
@@ -93,53 +94,6 @@ def propagate_arrays(f: Frames, ops, q0, q1) -> Frames:
     return Frames(x, z)
 
 
-def _sampled_fault_bits(ops, model: noise_mod.NoiseModel,
-                        generator: torch.Generator,
-                        batch: int) -> torch.Tensor:
-    """[B, 4G] uint8 fault bits, four per gate: (x_a, z_a, x_b, z_b).
-    1q gates draw one uniform each (their last two bits stay zero); 2q
-    gates draw a hit uniform and a pattern in [1, 16) whose bits 0..3 are
-    (x_a, z_a, x_b, z_b) — or, when ``model.pauli2`` is set, one (B, 2)
-    biased draw, one per touched qubit. The structure of the reference's
-    draws (sim/frame.py `_inject1`/`_inject2`); the numbers are torch's,
-    drawn on the generator's device."""
-    device = generator.device
-    ops = [int(o) for o in _host_ints(ops)]
-    G = len(ops)
-    out = torch.zeros((batch, 4 * G), dtype=torch.uint8, device=device)
-    idx_1q = [g for g, op in enumerate(ops) if op < _TWO_Q_START]
-    idx_2q = [g for g, op in enumerate(ops) if op >= _TWO_Q_START]
-    if idx_1q:
-        x_hi, z_lo, z_hi = noise_mod._thresholds_1q(model.rate1)
-        u = torch.rand((len(idx_1q), batch), generator=generator,
-                       device=device)
-        base = 4 * torch.as_tensor(idx_1q, device=device)
-        out[:, base] = (u < x_hi).T.to(torch.uint8)
-        out[:, base + 1] = ((u >= z_lo) & (u < z_hi)).T.to(torch.uint8)
-    if idx_2q:
-        rate2 = model.rate2
-        base = 4 * torch.as_tensor(idx_2q, device=device)
-        if isinstance(rate2, tuple):
-            x_hi, z_lo, z_hi = noise_mod._thresholds_1q(rate2)
-            u = torch.rand((len(idx_2q), batch, 2), generator=generator,
-                           device=device)
-            x_hit = (u < x_hi).to(torch.uint8)
-            z_hit = ((u >= z_lo) & (u < z_hi)).to(torch.uint8)
-            out[:, base] = x_hit[:, :, 0].T
-            out[:, base + 1] = z_hit[:, :, 0].T
-            out[:, base + 2] = x_hit[:, :, 1].T
-            out[:, base + 3] = z_hit[:, :, 1].T
-        else:
-            hit = (torch.rand((len(idx_2q), batch), generator=generator,
-                              device=device) < rate2).to(torch.uint8)
-            pat = torch.randint(1, 16, (len(idx_2q), batch),
-                                generator=generator, device=device)
-            for bit in range(4):
-                out[:, base + bit] = (((pat >> bit) & 1).to(torch.uint8)
-                                      * hit).T
-    return out
-
-
 def run_arrays_noisy(f: Frames, ops, q0, q1, model: noise_mod.NoiseModel,
                      generator: torch.Generator | None = None, *,
                      fault_bits: torch.Tensor | None = None) -> Frames:
@@ -151,7 +105,7 @@ def run_arrays_noisy(f: Frames, ops, q0, q1, model: noise_mod.NoiseModel,
     ops, q0, q1 = _host_ints(ops), _host_ints(q0), _host_ints(q1)
     bits = fault_bits
     if bits is None:
-        bits = _sampled_fault_bits(ops, model, generator, f.batch)
+        bits = noise_mod.sampled_fault_bits(ops, model, generator, f.batch)
     x, z = f.x.clone(), f.z.clone()
     for g, (op, a, b) in enumerate(zip(ops, q0, q1)):
         op, a, b = int(op), int(a), int(b)
@@ -262,7 +216,8 @@ def run_compiled_noisy(f: Frames, comp: CompiledFrameCircuit,
     if (model.p_gate1 or model.p_gate2) and comp.s is not None:
         bits = fault_bits
         if bits is None:
-            bits = _sampled_fault_bits(comp.ops, model, generator, f.batch)
+            bits = noise_mod.sampled_fault_bits(comp.ops, model, generator,
+                                                f.batch)
         out = out ^ mod2_matmul(bits, comp.s)
     n = comp.n
     return Frames(out[:, :n].contiguous(), out[:, n:].contiguous())

@@ -392,3 +392,89 @@ def test_mc_decode_rounds_on_cuda_uses_the_packed_kernels(cuda):
         before["syndromes_packed"] + 8
     rate = int(out["word_fail"]) / (4 << 16)
     assert 0.02 < rate < 0.05  # Steane at p=0.05: about 0.034
+
+
+def _random_packed_state(n, B, seed, device):
+    """A packed tableau after a random Clifford circuit of depth 4n, and
+    the circuit's rng."""
+    from qcss_tpu_torch.circuits.ir import Circuit
+    from qcss_tpu_torch.sim import tableau_packed as tp
+
+    names = ["I", "X", "Y", "Z", "H", "S", "CNOT", "CZ"]
+    rng = np.random.default_rng(seed)
+    circ = Circuit()
+    for _ in range(4 * n):
+        k = int(rng.integers(0, 8))
+        a, b = (int(v) for v in rng.choice(n, 2, replace=False))
+        circ.gate(names[k], *((a,) if k < 6 else (a, b)))
+    return tp.run_circuit(tp.zero_state(B, n, device), circ), rng
+
+
+@pytest.mark.parametrize("n,B", [(7, 1024), (40, 1001), (121, 1024),
+                                 (363, 1000), (720, 33)])
+def test_measure_kernel_matches_plain(cuda, n, B):
+    from qcss_tpu_torch.sim import cuda_measure
+    from qcss_tpu_torch.sim import tableau as tb
+    from qcss_tpu_torch.sim import tableau_packed as tp
+
+    t, rng = _random_packed_state(n, B, n, cuda)
+    # a second pass over some qubits: deterministic outcomes for sure
+    first = rng.choice(n, min(n, 24), replace=False)
+    qs = np.concatenate([first, first[:8]])
+    if n > 32:
+        qs[0] = 31
+    bits = tb.collapse_bits(torch.Generator(device=cuda).manual_seed(n), B,
+                            len(qs))
+    assert cuda_measure.in_shared_memory(n, t.words) == (n < 670)
+    before = cuda_measure.launches
+    tk, ok = cuda_measure.measure_many_cuda(t, qs, bits)
+    assert cuda_measure.launches == before + 1
+    tpl, op = tp.measure_many(t, qs, rand_bits=bits)
+    torch.cuda.synchronize()
+    assert torch.equal(ok, op)
+    assert torch.equal(tk.x, tpl.x) and torch.equal(tk.z, tpl.z)
+    assert torch.equal(tk.r, tpl.r)
+
+
+def test_packed_engine_measures_blocks_with_the_kernel(cuda):
+    from qcss_tpu_torch.ftqc.engines import PackedEngine
+    from qcss_tpu_torch.sim import cuda_measure
+    from qcss_tpu_torch.sim import tableau as tb
+    from qcss_tpu_torch.sim.noise import NoiseModel
+    from qcss_tpu_torch.benchmarks.tableau_bench import ladder_circuit
+
+    eng = PackedEngine(121, 2, NoiseModel())
+    arrays = ladder_circuit(121).to_arrays()
+    states = {}
+    for where in ("cpu", cuda):
+        t = eng.zero_state(99, where)
+        for b in range(2):
+            t = eng.run_block_circuit(t, arrays, b)
+        states[where] = t
+    bits = tb.collapse_bits(torch.Generator().manual_seed(3), 99, 121)
+    before = cuda_measure.launches
+    tk, ok = eng.measure_block(states[cuda], 1, rand_bits=bits.to(cuda))
+    assert cuda_measure.launches == before + 1
+    tc, oc = eng.measure_block(states["cpu"], 1, rand_bits=bits)
+    assert cuda_measure.launches == before + 1
+    assert torch.equal(ok.cpu(), oc)
+    for a, b in ((tk.x, tc.x), (tk.z, tc.z), (tk.r, tc.r)):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_measure_wrapper_checks_inputs(cuda):
+    from qcss_tpu_torch.sim import cuda_measure
+    from qcss_tpu_torch.sim import tableau_packed as tp
+
+    t = tp.zero_state(4, 9, cuda)
+    bits = torch.zeros((4, 2), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="card"):
+        cuda_measure.measure_many_cuda(tp.zero_state(4, 9, "cpu"), [0, 1],
+                                       bits.cpu())
+    with pytest.raises(ValueError, match="qubits"):
+        cuda_measure.measure_many_cuda(t, [0, 9], bits)
+    with pytest.raises(ValueError, match="rand_bits"):
+        cuda_measure.measure_many_cuda(t, [0, 1], bits[:, :1])
+    with pytest.raises(ValueError, match="x"):
+        cuda_measure.measure_many_cuda(t.replace(x=t.x.to(torch.int64)),
+                                       [0, 1], bits)

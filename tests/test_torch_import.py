@@ -32,6 +32,7 @@ PORT_MODULES = [
     "qcss_tpu_torch.benchmarks.steane_mc",
     "qcss_tpu_torch.benchmarks.stream_bench",
     "qcss_tpu_torch.benchmarks.syndrome_sweep",
+    "qcss_tpu_torch.benchmarks.tableau_bench",
     "qcss_tpu_torch.circuits",
     "qcss_tpu_torch.codes",
     "qcss_tpu_torch.decode",
@@ -49,10 +50,16 @@ PORT_MODULES = [
     "qcss_tpu_torch.decode.streaming",
     "qcss_tpu_torch.decode.sweep",
     "qcss_tpu_torch.experiments.memory",
+    "qcss_tpu_torch.ftqc",
+    "qcss_tpu_torch.ftqc.engines",
     "qcss_tpu_torch.ops.cuda_gf2",
     "qcss_tpu_torch.ops.gf2_torch",
+    "qcss_tpu_torch.sim.cuda_measure",
     "qcss_tpu_torch.sim.frame",
     "qcss_tpu_torch.sim.noise",
+    "qcss_tpu_torch.sim.statevec",
+    "qcss_tpu_torch.sim.tableau",
+    "qcss_tpu_torch.sim.tableau_packed",
 ]
 
 
@@ -108,7 +115,7 @@ def _segments(text: str, names) -> dict:
 VERBATIM = ["errors.py", "circuits/ir.py", "circuits/encoding.py",
             "circuits/quil.py", "circuits/__init__.py", "codes/pauli.py",
             "codes/qecc.py", "codes/families.py", "codes/__init__.py",
-            "decode/dem.py"]
+            "decode/dem.py", "sim/statevec.py"]
 
 
 @pytest.mark.parametrize("rel", VERBATIM)

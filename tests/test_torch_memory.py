@@ -9,6 +9,9 @@
 * The LUT decoders ('vote', 'difference', 'stlut'), given the syndromes
   and readout the JAX sampler drew, must give identical logical-failure
   and residual-syndrome counts: exact.
+* The tableau engine must give counts bit-identical to the frames
+  engine's at the same seed, in both bases, as the reference's engines
+  do (tests/test_memory_experiment.py); noiseless runs are silent.
 """
 
 import math
@@ -101,9 +104,9 @@ def test_identical_detectors_identical_failures():
 def test_unported_engines_and_decoders_raise():
     code = rotated_surface(3)
     noise = TNoise(**NOISE)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="engine"):
         tmem.memory_experiment(code, rounds=3, noise=noise,
-                               decoder="device-dem", engine="tableau",
+                               decoder="device-dem", engine="statevector",
                                device="cpu")
     for decoder in ("uf", "dem-mwpm"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -195,3 +198,33 @@ def test_lut_decoder_rate_within_wilson_of_jax(jax_lut_samples):
     lo, hi = _wilson(kj, LUT_BATCH)
     assert 0 < rt["logical_fail"] and lo <= rt["logical_fail"] <= hi, (
         kj / LUT_BATCH, rt["logical_fail"], lo, hi)
+
+
+@pytest.mark.parametrize("code_name,decoder,basis", [
+    ("steane", "vote", "z"), ("steane", "vote", "x"),
+    ("steane", "difference", "z"), ("steane", "stlut", "x"),
+    ("surface3", "device-dem", "z"), ("surface3", "device-uf", "x")])
+def test_tableau_engine_bit_identical_to_frames(code_name, decoder, basis):
+    # the reference test's setting (Steane, R=3, B=1024, seed 7); the
+    # surface code adds reset noise, which both engines draw alike
+    if code_name == "steane":
+        code, noise = tfam.steane(), TNoise(p_gate2=2e-3, p_meas=1e-2)
+    else:
+        code = tfam.rotated_surface(3)
+        noise = TNoise(p_gate2=1e-2, p_meas=1e-2, p_reset=1e-2)
+    kw = dict(rounds=3, noise=noise, basis=basis, batch=1024, seed=7,
+              decoder=decoder, device="cpu")
+    a = tmem.memory_experiment(code, engine="tableau", **kw)
+    b = tmem.memory_experiment(code, engine="frames", **kw)
+    assert a["logical_fail"] > 0
+    assert a["logical_fail"] == b["logical_fail"]
+    np.testing.assert_equal(a["residual_syndrome"], b["residual_syndrome"])
+
+
+@pytest.mark.parametrize("basis", ["z", "x"])
+def test_tableau_engine_noiseless_is_silent(basis):
+    out = tmem.memory_experiment(tfam.steane(), rounds=3, noise=TNoise(),
+                                 basis=basis, batch=64, decoder="vote",
+                                 engine="tableau", device="cpu")
+    assert out["logical_fail"] == 0.0 and out["residual_syndrome"] == 0.0
+
