@@ -67,9 +67,14 @@ measurement kernel K9:
 9. times each kernel, its plain version and (K6, K7) the dense matmul
    form at the main paths' shapes, beside each kernel's bound, checking
    each timed output against the plain version's (K9 at n = 121 and 363,
-   B=4096, M=32 on the ladder state); and times one round's decode at
-   the headline's shape in the packed form the Monte Carlo runs and in
-   the reference's dense forms.
+   B=4096, M=32 on the ladder state); prints K1's launch plan (shots a
+   block, shared memory, registers) and the work its data need at both
+   of its shapes (shots running, live vertices and sweeps per round,
+   counted with the plain version on the card; the bound counts those
+   candidate reads); times K7 alone and through its wrapper at every
+   sweep distance; and times one round's decode at the headline's shape
+   in the packed form the Monte Carlo runs and in the reference's dense
+   forms.
 
 Any failure exits non-zero. The last line is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
@@ -258,6 +263,94 @@ def staged_inputs(duf, dg, state):
     sups, supbs, _ = duf._grow_step(dg, packed, act, sup[:, :O], sup[:, O:])
     satm, satb = duf._saturated(dg, sups, supbs)
     return satm.contiguous(), satb.contiguous(), passes
+
+
+def k1_work(duf, dg, defect):
+    """What K1's data need, counted with its plain version on the card (the
+    round loop of `device_uf._stencil_rounds`, one Jacobi sweep a call of
+    `_propagate`). The plain loop is batch-wide; K1 stops each shot when
+    it is quiet, so a round counts the shots still running in it: their
+    number, their mean live vertices (the defects and the ends of
+    saturated edges and slots), the mean and largest sweeps they take
+    (the last, changeless sweep included); and the candidate reads those
+    sweeps make over the live vertices, (2O + KB) a vertex and sweep,
+    summed over the batch. Returns (rounds, reads, packed), packed the
+    plain version's final labels."""
+    import torch
+
+    st = dg.stencil
+    B, V = defect.shape
+    O, KB = len(st.deltas), st.bmask.shape[0]
+    dev = defect.device
+    packed = duf.initial_labels(dg, B, dev)
+    sup = torch.zeros((B, O, V), dtype=torch.int32, device=dev)
+    supb = torch.zeros((B, KB, V), dtype=torch.int32, device=dev)
+    vals = tuple(torch.zeros_like(defect) for _ in st.chunks)
+    act = defect
+    rounds, reads = [], 0
+    running = (defect != 0).any(1)
+    active = bool(act.any())
+    while active and len(rounds) < dg.max_rounds:
+        sup, supb, grew = duf._grow_step(dg, packed, act, sup, supb)
+        satm, satb = duf._saturated(dg, sup, supb)
+        live = (defect != 0) | satm.any(1) | satb.any(1)
+        for o, d in enumerate(st.deltas):
+            live[:, d:] |= satm[:, o, :V - d]
+        sweeps = torch.zeros(B, dtype=torch.int64, device=dev)
+        changing = torch.ones(B, dtype=torch.bool, device=dev)
+        while bool(changing.any()):
+            packed, vals, still = duf._propagate(dg, packed, satm, satb, vals,
+                                                 cap=1)
+            sweeps += changing
+            changing &= still
+        act, _ = duf._spread(dg, duf.parity_seeds(dg, packed, defect),
+                             duf._cluster_passes(dg, packed, satm))
+        n_live = live.sum(1)[running]
+        sweeps = sweeps[running]
+        reads += int((sweeps * n_live).sum()) * (2 * O + KB)
+        rounds.append({"shots": int(running.sum()),
+                       "live_mean": float(n_live.float().mean()),
+                       "sweeps_mean": float(sweeps.float().mean()),
+                       "sweeps_max": int(sweeps.max())})
+        running &= act.any(1) & grew.any(1)
+        active = bool(act.any() & grew.any())
+    return rounds, reads, packed
+
+
+def k1_report(label, device_uf_cuda, duf, dg, defect, int_ops_per_s):
+    """K1's launch plan and the work its data need at one shape, logged;
+    returns (plan, work, bound) for the kernels line. The bound counts each
+    input and output byte once (defects in, labels, activity and chunk
+    words out, the edge words and chunk tables) and the candidate reads of
+    `k1_work` as integer operations."""
+    st = dg.stencil
+    B, V = defect.shape
+    NC = len(st.chunks)
+    plan = device_uf_cuda.stencil_full_config(dg)
+    log(f"K1 plan at {label}: {plan['shots_per_block']} shots (warps) a "
+        f"block, {plan['smem_bytes']} bytes of shared memory a block "
+        f"({plan['shot_bytes']} a shot; tables "
+        f"{'staged' if plan['tables_in_smem'] else 'in device memory'}), "
+        f"{plan['registers']} registers, {plan['blocks_per_sm']} block(s) "
+        f"an SM, {plan['form']} edge words")
+    rounds, reads, packed = k1_work(duf, dg, defect)
+    k_packed = device_uf_cuda.stencil_full(dg, defect)[0]
+    if not bool((k_packed == packed).all()):
+        raise RuntimeError(f"K1 disagrees with the walked plain version at "
+                           f"{label}")
+    log(f"K1 work at {label} (plain version on the card): shots running "
+        f"per round " + " / ".join(str(r["shots"]) for r in rounds)
+        + "; their live vertices a shot " + " / ".join(
+            f"{r['live_mean']:.2f}" for r in rounds)
+        + f" of {V}; sweeps a round, mean " + " / ".join(
+            f"{r['sweeps_mean']:.2f}" for r in rounds)
+        + ", max " + " / ".join(str(r["sweeps_max"]) for r in rounds)
+        + f"; {reads} candidate reads")
+    words = st.kernel_words(dg.pack_shift)[0]
+    nbytes = 4 * ((3 + NC) * B * V + words.numel() + len(st.deltas)
+                  + (st.kernel_chunk_tables.numel() if NC else 0))
+    return plan, {"rounds": rounds, "candidate_reads": reads}, bound(
+        nbytes, reads, int_ops_per_s)
 
 
 def k9_walk(tp, t, qubits, bits):
@@ -992,16 +1085,24 @@ def main() -> int:
 
     # -- 9. kernel and plain-version times at the main paths' shapes
     defect_big = duf.stencil_defect(dg, dets_big)
-    k1_ms = cuda_ms(lambda: device_uf_cuda.stencil_full(dg, defect_big), 5)
+    k1_ms = cuda_ms(lambda: device_uf_cuda.stencil_full(dg, defect_big), 20)
     k1_plain_ms = cuda_ms(lambda: duf._stencil_plain(dg, defect_big), 2)
     pk, ak, _ = device_uf_cuda.stencil_full(dg, defect_big)
     pp, ap, _ = duf._stencil_plain(dg, defect_big)
     k1_err = max(k1_err, max_abs(pk, pp), max_abs(ak, ap))
+    # on all-zero detectors: the fixed cost of a row in and its labels out
+    zero_big = torch.zeros_like(defect_big)
+    k1_zero_ms = cuda_ms(lambda: device_uf_cuda.stencil_full(dg, zero_big),
+                         20)
+    k1_err = max([k1_err] + [max_abs(a, b) for a, b in zip(
+        device_uf_cuda.stencil_full(dg, zero_big)[:2],
+        duf._stencil_plain(dg, zero_big)[:2])])
     if k1_err:
         raise RuntimeError(f"stencil kernel disagrees at B={BATCH}")
     V1 = defect_big.shape[1]
-    k1_bound = bound(4 * (3 * BATCH * V1 + st.kernel_tables.numel()
-                          + len(st.deltas)))
+    k1_plan, k1_need, k1_bound = k1_report(
+        f"B={BATCH} V={V1} NC=0", device_uf_cuda, duf, dg, defect_big,
+        int_ops_per_s)
     k2_ms = cuda_ms(lambda: device_sparse_cuda.sparse_decode_cuda(
         tables_dev, D_MAX, ev48, dets_big), 5)
     k2_plain_ms = cuda_ms(lambda: dsp._sparse_plain(
@@ -1013,8 +1114,9 @@ def main() -> int:
     if k2_err:
         raise RuntimeError(f"sparse kernel disagrees at B={BATCH}")
     k2_bound = bound(sparse_bytes(dets_big, D_MAX))
-    log(f"K1 stencil B={BATCH}: kernel {k1_ms:.4f} ms, plain "
-        f"{k1_plain_ms:.3f} ms, bound {k1_bound[0]:.4f} ms ({k1_bound[1]})")
+    log(f"K1 stencil B={BATCH}: kernel {k1_ms:.4f} ms ({k1_zero_ms:.4f} ms "
+        f"on all-zero detectors), plain {k1_plain_ms:.3f} ms, bound "
+        f"{k1_bound[0]:.4f} ms ({k1_bound[1]})")
     log(f"K2 sparse B={BATCH} d_max={D_MAX}: kernel {k2_ms:.4f} ms, plain "
         f"{k2_plain_ms:.3f} ms (compaction and distance fetch included), "
         f"bound {k2_bound[0]:.4f} ms ({k2_bound[1]})")
@@ -1026,24 +1128,27 @@ def main() -> int:
         STREAM_BATCH, WINDOW, raw, lz)[0][:, :WINDOW].reshape(
             STREAM_BATCH, -1).contiguous()
     wdef = duf.stencil_defect(mid, wdets)
-    k1w_ms = cuda_ms(lambda: device_uf_cuda.stencil_full(mid, wdef), 5)
+    k1w_ms = cuda_ms(lambda: device_uf_cuda.stencil_full(mid, wdef), 20)
     k1w_plain_ms = cuda_ms(lambda: duf._stencil_plain(mid, wdef), 2)
-    out_k = device_uf_cuda.stencil_full(mid, wdef)
-    out_p = duf._stencil_plain(mid, wdef)
-    k1c_err = max([k1c_err, max_abs(out_k[0], out_p[0]),
-                   max_abs(out_k[1], out_p[1])]
-                  + [max_abs(a, b) for a, b in zip(out_k[2], out_p[2])])
+    wzero = torch.zeros_like(wdef)
+    k1w_zero_ms = cuda_ms(lambda: device_uf_cuda.stencil_full(mid, wzero), 20)
+    for x in (wdef, wzero):
+        out_k = device_uf_cuda.stencil_full(mid, x)
+        out_p = duf._stencil_plain(mid, x)
+        k1c_err = max([k1c_err, max_abs(out_k[0], out_p[0]),
+                       max_abs(out_k[1], out_p[1])]
+                      + [max_abs(a, b) for a, b in zip(out_k[2], out_p[2])])
     if k1c_err:
         raise RuntimeError(f"stencil kernel with chunks disagrees at "
                            f"B={STREAM_BATCH}")
     Vw = wdef.shape[1]
     NCw = len(mid.stencil.chunks)
-    k1w_bound = bound(4 * ((3 + NCw) * STREAM_BATCH * Vw
-                           + mid.stencil.kernel_tables.numel()
-                           + mid.stencil.kernel_chunk_tables.numel()
-                           + len(mid.stencil.deltas)))
+    k1w_plan, k1w_need, k1w_bound = k1_report(
+        f"B={STREAM_BATCH} V={Vw} NC={NCw}", device_uf_cuda, duf, mid, wdef,
+        int_ops_per_s)
     log(f"K1 stencil with chunks B={STREAM_BATCH} V={Vw} NC={NCw}: kernel "
-        f"{k1w_ms:.4f} ms, plain {k1w_plain_ms:.3f} ms, bound "
+        f"{k1w_ms:.4f} ms ({k1w_zero_ms:.4f} ms on all-zero detectors), "
+        f"plain {k1w_plain_ms:.3f} ms, bound "
         f"{k1w_bound[0]:.4f} ms ({k1w_bound[1]})")
     # an estimate from two runs, not a reading of one: K1's time here, on
     # rows sampled for this step, times the timed call's chunk launches,
@@ -1177,6 +1282,49 @@ def main() -> int:
         4 * (W11 * SWEEP_BATCH + R11 * W11) + R11 * SWEEP_BATCH,
         SWEEP_BATCH * R11 * (W11 + 2))
     k6_err = max(k6_err, err)
+    # K7 at the sweep's smaller distances, where an application is short:
+    # the kernel alone (the C entry point on a preallocated output), the
+    # wrapper's call (checks and allocation included), both by CUDA events
+    # over back-to-back calls, and the host's time per wrapper call
+    lib = _cuda.load()
+    k7_by_d = {}
+    for d in syndrome_sweep.DISTANCES:
+        hd = packed(rotated_surface(d).parity_check_c2, dev)
+        Rd, Wd = hd.shape
+        e_t = random_words(gen_w, (Wd, SWEEP_BATCH))
+        out = torch.empty(((Rd + 31) // 32, SWEEP_BATCH), dtype=torch.int32,
+                          device=dev)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def bare(e_t=e_t, hd=hd, out=out, Rd=Rd, Wd=Wd, stream=stream):
+            _cuda.check(lib.qcss_syndromes_packed_t(
+                e_t.data_ptr(), hd.data_ptr(), SWEEP_BATCH, Wd, Rd,
+                out.data_ptr(), stream), "qcss_syndromes_packed_t")
+
+        bare()
+        err = max_abs_words(out, cuda_gf2.syndromes_packed_t_plain(e_t, hd))
+        if err:
+            raise RuntimeError(f"K7 disagrees at d={d} (max abs err {err})")
+        k7_err = max(k7_err, err)
+        wrap = lambda e_t=e_t, hd=hd: cuda_gf2.syndromes_packed_t_cuda(e_t, hd)
+        row = {"R": Rd, "W": Wd, "kernel_ms": cuda_ms(bare, 50),
+               "wrapper_ms": cuda_ms(wrap, 50)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            wrap()
+        row["wrapper_host_ms"] = (time.perf_counter() - t0) * 1e3 / 50
+        torch.cuda.synchronize()
+        row["bound_ms"], row["bound_by"] = bound(
+            4 * (Wd * SWEEP_BATCH + Rd * Wd + (Rd + 31) // 32 * SWEEP_BATCH),
+            SWEEP_BATCH * Rd * (Wd + 3), int_ops_per_s)
+        k7_by_d[d] = row
+        log(f"K7 d={d} B={SWEEP_BATCH} (R={Rd}, W={Wd}): kernel "
+            f"{row['kernel_ms']:.4f} ms, through the wrapper "
+            f"{row['wrapper_ms']:.4f} ms, host {row['wrapper_host_ms']:.4f} "
+            f"ms a wrapper call; bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']})")
+    times["K7"]["by_distance"] = k7_by_d
 
     # one round's decode at the headline's shape: the packed form the Monte
     # Carlo runs against the reference's dense forms, on the same errors
@@ -1205,12 +1353,14 @@ def main() -> int:
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None,
          "shape": f"B={BATCH} V={V1} NC=0 (fused memory)",
+         "plan": k1_plan, "work": k1_need,
          "window": {"shape": f"B={STREAM_BATCH} V={Vw} NC={NCw} (streaming "
                              f"window)",
                     "launches": n_k1_chunks, "max_abs_err": k1c_err,
                     "ms": k1w_ms, "plain_ms": k1w_plain_ms,
                     "bound_ms": k1w_bound[0], "bound_by": k1w_bound[1],
-                    "library_ms": None}},
+                    "library_ms": None, "plan": k1w_plan,
+                    "work": k1w_need}},
         {"name": "uf_stencil_prop", "route": "cuda",
          "source": "qcss_tpu_torch/csrc/uf_stencil_staged.cu",
          "replaces": "qcss_tpu/decode/device_uf_pallas.py:74",

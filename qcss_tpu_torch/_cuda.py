@@ -103,11 +103,12 @@ def load() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.qcss_uf_stencil_full.argtypes = [
-            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr, ptr,
-            ptr, ptr]
+            ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32, i32, i32, i32, i32,
+            ptr, ptr, ptr, ptr, ptr]
         lib.qcss_uf_stencil_full.restype = i32
-        lib.qcss_uf_stencil_full_smem.argtypes = [i32, i32, i32, i32]
-        lib.qcss_uf_stencil_full_smem.restype = i64
+        lib.qcss_uf_stencil_full_config.argtypes = [
+            i32, i32, i32, i32, i32, ptr]
+        lib.qcss_uf_stencil_full_config.restype = i32
         lib.qcss_stencil_prop.argtypes = [
             ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr]
         lib.qcss_stencil_prop.restype = i32

@@ -20,11 +20,16 @@
 //   (B % tile_b == 0); here a grid of blocks masks its ragged last block,
 //   so any B is taken.
 //
-// Design: one thread per output element with coalesced stores.
+// Design: stores coalesce along the batch.
 //   K6: thread t owns (shot t / R, row t % R): consecutive threads write
 //       consecutive bytes of the row-major [B, R] output.
-//   K7: thread b owns shot b of the transposed [W, B] input, so reads of
-//       E_T[w, b] and writes of S_T[rw, b] coalesce along b.
+//   K7: a thread owns 2-4 shots of the transposed [W, B] input, so reads
+//       of E_T[w, b] and writes of S_T[rw, b] coalesce along b. Its bound
+//       is the integer work (W LOP3s, a popcount and the bit's placement
+//       per shot and row), so the shots' words are loaded into registers
+//       once (template instances for W = 1..8; wider checks in chunks of
+//       8 words) and each check row, a shared-memory broadcast, serves all
+//       of the thread's shots: W loads a shot, not R*W.
 //   K8: thread b owns shot b: its R syndrome bits form the big-endian
 //       index (row 0 most significant, the reference's 1 << (R-1-r)
 //       weights), and the LUT row is XORed into its error words.
@@ -39,6 +44,9 @@ constexpr int kThreads = 256;
 // check rows and LUT words staged in shared memory up to this size;
 // above it the kernels read them from device memory (through L1/L2)
 constexpr int kSmemBytes = 48 * 1024;
+// K7 keeps up to this many words of a shot in registers; wider checks
+// run in chunks of it (the generic instance)
+constexpr int kK7MaxWords = 8;
 
 __device__ __forceinline__ unsigned row_parity(const unsigned* e,
                                                const unsigned* h, int W) {
@@ -71,25 +79,66 @@ __global__ void syndromes_packed_kernel(const unsigned* __restrict__ e,
   out[t] = (unsigned char)row_parity(e + b * W, hs + (long long)r * W, W);
 }
 
-__global__ void syndromes_packed_t_kernel(const unsigned* __restrict__ e_t,
-                                          const unsigned* __restrict__ h,
-                                          long long B, int W, int R,
-                                          bool h_in_smem,
-                                          unsigned* __restrict__ out) {
+// K7. Thread t of a block owns kShots shots, b = base + j * blockDim.x +
+// t (j < kShots), so loads of E_T[w, b] and stores of S_T[rw, b] coalesce
+// along b. The shots' words sit in registers: kWC words a shot, read once
+// when W <= kWC, else once per (output word, chunk of kWC words). Each
+// check row is read once per thread, from shared memory as a broadcast,
+// and serves all kShots shots; the 32 rows of an output word are unrolled.
+// Rows past R and words past W read as zero, so their parity bits are 0.
+template <int kWC, int kShots>
+__global__ void __launch_bounds__(kThreads)
+syndromes_packed_t_kernel(const unsigned* __restrict__ e_t,
+                          const unsigned* __restrict__ h, long long B,
+                          int W, int R, bool h_in_smem,
+                          unsigned* __restrict__ out) {
   extern __shared__ unsigned smem[];
   const unsigned* hs = stage(h, (long long)R * W, smem, h_in_smem);
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  const long long base =
+      (long long)blockIdx.x * blockDim.x * kShots + threadIdx.x;
+  long long b[kShots];
+  bool ok[kShots];
+#pragma unroll
+  for (int j = 0; j < kShots; ++j) {
+    b[j] = base + (long long)j * blockDim.x;
+    ok[j] = b[j] < B;
+  }
   const int WR = (R + 31) / 32;
+  unsigned e[kShots][kWC];
   for (int rw = 0; rw < WR; ++rw) {
-    unsigned packed = 0;
-    const int r_end = min(R, 32 * (rw + 1));
-    for (int r = 32 * rw; r < r_end; ++r) {
-      unsigned acc = 0;
-      for (int w = 0; w < W; ++w) acc ^= e_t[(long long)w * B + b] & hs[r * W + w];
-      packed |= (__popc(acc) & 1u) << (r - 32 * rw);
+    // parity is linear, so the chunks' partial parities XOR together
+    unsigned packed[kShots];
+#pragma unroll
+    for (int j = 0; j < kShots; ++j) packed[j] = 0u;
+    for (int w0 = 0; w0 < W; w0 += kWC) {
+      if (rw == 0 || W > kWC) {
+#pragma unroll
+        for (int j = 0; j < kShots; ++j)
+#pragma unroll
+          for (int w = 0; w < kWC; ++w)
+            e[j][w] = (ok[j] && w0 + w < W)
+                          ? e_t[(long long)(w0 + w) * B + b[j]]
+                          : 0u;
+      }
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        const int row = 32 * rw + r;
+        unsigned hv[kWC];
+#pragma unroll
+        for (int w = 0; w < kWC; ++w)
+          hv[w] = (row < R && w0 + w < W) ? hs[row * W + w0 + w] : 0u;
+#pragma unroll
+        for (int j = 0; j < kShots; ++j) {
+          unsigned acc = 0u;
+#pragma unroll
+          for (int w = 0; w < kWC; ++w) acc ^= e[j][w] & hv[w];
+          packed[j] ^= ((unsigned)__popc(acc) & 1u) << r;
+        }
+      }
     }
-    out[(long long)rw * B + b] = packed;
+#pragma unroll
+    for (int j = 0; j < kShots; ++j)
+      if (ok[j]) out[(long long)rw * B + b[j]] = packed[j];
   }
 }
 
@@ -144,10 +193,28 @@ extern "C" int qcss_syndromes_packed_t(const int* e_t, const int* h,
   if (B > 0) {
     const long long hb = 4LL * R * W;
     const bool fits = hb <= kSmemBytes;
-    syndromes_packed_t_kernel<<<blocks_for(B), kThreads, fits ? hb : 0,
-                                (cudaStream_t)stream>>>(
-        (const unsigned*)e_t, (const unsigned*)h, B, W, R, fits,
-        (unsigned*)out);
+    const size_t smem = fits ? (size_t)hb : 0;
+    const cudaStream_t s = (cudaStream_t)stream;
+    const unsigned* et = (const unsigned*)e_t;
+    const unsigned* hw = (const unsigned*)h;
+    unsigned* o = (unsigned*)out;
+    // kShots shots a thread: 4 while a shot's words are few, else 2
+#define QCSS_K7(WC, SHOTS)                                                 \
+  syndromes_packed_t_kernel<WC, SHOTS>                                     \
+      <<<blocks_for((B + SHOTS - 1) / SHOTS), kThreads, smem, s>>>(        \
+          et, hw, B, W, R, fits, o)
+    switch (W) {
+      case 1: QCSS_K7(1, 4); break;
+      case 2: QCSS_K7(2, 4); break;
+      case 3: QCSS_K7(3, 4); break;
+      case 4: QCSS_K7(4, 4); break;
+      case 5: QCSS_K7(5, 2); break;
+      case 6: QCSS_K7(6, 2); break;
+      case 7: QCSS_K7(7, 2); break;
+      case 8: QCSS_K7(8, 2); break;
+      default: QCSS_K7(kK7MaxWords, 2); break;  // chunks of 8 words
+    }
+#undef QCSS_K7
   }
   return (int)cudaGetLastError();
 }

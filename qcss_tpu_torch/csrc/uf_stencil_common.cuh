@@ -1,5 +1,5 @@
-// Device code shared by the stencil union-find kernels: the whole decode
-// (uf_stencil_full.cu) and its staged forms (uf_stencil_staged.cu).
+// Device code of the staged stencil union-find kernels
+// (uf_stencil_staged.cu), and the limits every stencil kernel shares.
 //
 // Every function here is called by all threads of one block, which holds
 // one shot: per-vertex state lives in shared memory, V vertices with the
@@ -49,20 +49,9 @@ __device__ __forceinline__ StencilTables split_tables(const int* tab, int V,
 // among its saturated neighbours and the hub, and only if that lowers its
 // comp; the hub adopts the block-wide minimum over the saturated boundary
 // slots under the same rule.
-//
-// With kChunks, NC extra words per vertex travel with the labels (`ccur`
-// and `cnxt`, [NC, V], swapped like the labels): on adoption a vertex
-// copies its parent's words XOR the adopted edge's chunk bits (`ctab`,
-// [NC, O+KB, V]: per chunk O rows of edge bits, then KB rows of boundary
-// bits). Among equal candidates the first wins, in the order (o=0, v+d),
-// (o=0, v-d), (o=1, v+d), ..., then the hub's slots k = 0..KB-1; the hub
-// takes its words from the first slot k that offers the minimum and,
-// within it, the smallest vertex.
-template <bool kChunks>
 __device__ __forceinline__ void propagate_labels(
     int*& cur, int*& nxt, const int* sat, const int* eobs, const int* bobs,
-    const int* deltas, int V, int O, int KB, int L, int NC, int*& ccur,
-    int*& cnxt, const int* ctab, int* scratch) {
+    const int* deltas, int V, int O, int KB, int L, int* scratch) {
   const int bn = V - 1;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
@@ -74,76 +63,26 @@ __device__ __forceinline__ void propagate_labels(
       const int pv = cur[v];
       const int sb = sat[v];
       int cand = kBig;
-      int slot = -1;
       for (int o = 0; o < O; ++o) {
         const int d = deltas[o];
-        if (((sb >> o) & 1) && v + d < V) {  // parent = v + d
-          const int c = cur[v + d] ^ eobs[o * V + v];
-          if (c < cand) {
-            cand = c;
-            slot = 2 * o;
-          }
-        }
-        if (v >= d && ((sat[v - d] >> o) & 1)) {  // parent = v - d
-          const int c = cur[v - d] ^ eobs[o * V + v - d];
-          if (c < cand) {
-            cand = c;
-            slot = 2 * o + 1;
-          }
-        }
+        if (((sb >> o) & 1) && v + d < V)  // parent = v + d
+          cand = min(cand, cur[v + d] ^ eobs[o * V + v]);
+        if (v >= d && ((sat[v - d] >> o) & 1))  // parent = v - d
+          cand = min(cand, cur[v - d] ^ eobs[o * V + v - d]);
       }
       for (int k = 0; k < KB; ++k) {
         if ((sb >> (O + k)) & 1) {
           const int lab = bobs[k * V + v];
-          const int c = hub_val ^ lab;  // v adopts from the hub
-          if (c < cand) {
-            cand = c;
-            slot = 2 * O + k;
-          }
+          cand = min(cand, hub_val ^ lab);  // v adopts from the hub
           hub_local = min(hub_local, pv ^ lab);  // the hub adopts from v
         }
       }
       const bool adopt = (cand >> L) < (pv >> L);
       nxt[v] = adopt ? cand : pv;
       changed |= adopt;
-      if (kChunks) {
-        for (int c = 0; c < NC; ++c) {
-          const int* val = ccur + c * V;
-          const int* bits = ctab + c * (O + KB) * V;
-          int w = val[v];
-          if (adopt) {
-            if (slot >= 2 * O) {
-              w = val[bn] ^ bits[(O + slot - 2 * O) * V + v];
-            } else {
-              const int o = slot >> 1;
-              const int d = deltas[o];
-              w = (slot & 1) ? (val[v - d] ^ bits[o * V + v - d])
-                             : (val[v + d] ^ bits[o * V + v]);
-            }
-          }
-          cnxt[c * V + v] = w;
-        }
-      }
     }
     const int hub = block_min(hub_local, scratch);
     const bool adopt_b = (hub >> L) < (hub_val >> L);  // same in every thread
-    if (kChunks && adopt_b) {
-      int key = 0x7fffffff;  // k * V + v of the hub's provider
-      for (int v = tid; v < V; v += nt) {
-        const int sb = sat[v];
-        for (int k = 0; k < KB; ++k)
-          if (((sb >> (O + k)) & 1) && (cur[v] ^ bobs[k * V + v]) == hub)
-            key = min(key, k * V + v);
-      }
-      key = block_min(key, scratch);
-      if (tid == 0) {
-        const int k = key / V;
-        const int v = key - k * V;
-        for (int c = 0; c < NC; ++c)
-          cnxt[c * V + bn] =
-              ccur[c * V + v] ^ ctab[(c * (O + KB) + O + k) * V + v];
-      }
-    }
     if (adopt_b) {
       if (tid == 0) nxt[bn] = hub;
       changed = 1;
@@ -152,11 +91,6 @@ __device__ __forceinline__ void propagate_labels(
     int* t = cur;
     cur = nxt;
     nxt = t;
-    if (kChunks) {
-      t = ccur;
-      ccur = cnxt;
-      cnxt = t;
-    }
     if (!any) break;
   }
 }

@@ -18,11 +18,13 @@
 //   sweeps themselves run in shared memory, so a launch costs one pass
 //   over its planes plus the barriers of its sweeps.
 //
-// Design: the sweeps are the ones of the whole decode, shared through
-//   uf_stencil_common.cuh (propagate_labels, spread_activity, grow_step).
-//   Each kernel loads its shot into shared memory (masks folded into one
-//   bit word per vertex), runs the sweeps there and writes the planes
-//   back. The TPU kernels' batch tiles, roll-and-mask shifts and int32
+// Design: the block-wide sweeps of uf_stencil_common.cuh
+//   (propagate_labels, spread_activity, grow_step), one shot a block; the
+//   whole decode in one kernel (uf_stencil_full.cu) runs a warp a shot
+//   over lists of live vertices instead. Each kernel loads its shot into
+//   shared memory (masks folded into one bit word per vertex), runs the
+//   sweeps there and writes the planes back. The TPU kernels' batch
+//   tiles, roll-and-mask shifts and int32
 //   booleans have no counterpart: a block is one shot, a shift is an
 //   index, and K3 and K4 read their masks as the bytes torch stores
 //   bools in.
@@ -50,8 +52,6 @@ uf_stencil_prop_kernel(const int* __restrict__ packed_in,
   int* cur = smem;
   int* nxt = cur + V;
   int* sat = nxt + V;
-  int* none = nullptr;
-  int* none2 = nullptr;
 
   const StencilTables t = split_tables(tab, V, O, KB);
   const long long shot = blockIdx.x;
@@ -70,8 +70,8 @@ uf_stencil_prop_kernel(const int* __restrict__ packed_in,
     sat[v] = bits;
   }
   __syncthreads();
-  propagate_labels<false>(cur, nxt, sat, t.eobs, t.bobs, deltas, V, O, KB, L,
-                          0, none, none2, nullptr, scratch);
+  propagate_labels(cur, nxt, sat, t.eobs, t.bobs, deltas, V, O, KB, L,
+                   scratch);
   for (int v = tid; v < V; v += nt) out[row + v] = cur[v];
 }
 
@@ -125,8 +125,6 @@ uf_stencil_round_kernel(const int* __restrict__ packed_in,
   int* act = nxt + V;
   int* sat = act + V;  // first the pass bits, then the saturation bits
   int* sup = sat + V;  // [O + KB, V]
-  int* none = nullptr;
-  int* none2 = nullptr;
 
   const StencilTables t = split_tables(tab, V, O, KB);
   const long long shot = blockIdx.x;
@@ -165,8 +163,8 @@ uf_stencil_round_kernel(const int* __restrict__ packed_in,
             scratch);
 
   // 3. label propagation to the fixpoint over the saturated edges
-  propagate_labels<false>(cur, nxt, sat, t.eobs, t.bobs, deltas, V, O, KB, L,
-                          0, none, none2, nullptr, scratch);
+  propagate_labels(cur, nxt, sat, t.eobs, t.bobs, deltas, V, O, KB, L,
+                   scratch);
 
   for (int v = tid; v < V; v += nt) out_packed[row + v] = cur[v];
   for (int i = tid; i < (O + KB) * V; i += nt) out_sup[sup_row + i] = sup[i];

@@ -156,6 +156,35 @@ class StencilGraph(_StencilFields):
         return torch.as_tensor(self.deltas, dtype=torch.int32,
                                device=self.emask.device)
 
+    def kernel_words(self, L: int):
+        """The edge and boundary-slot words of the whole-decode kernel at
+        pack shift ``L``, built once per (graph, L): (words, wide, presat).
+
+        One word per edge (O rows) and slot (KB rows) holds its presence,
+        weight and label bits. Narrow, when every present weight is at
+        most 255, L <= 23 and the label bits fit below bit L: [O + KB, V]
+        int32 ``(max(wt, 0) + 1) << L | obs``, 0 where there is no edge.
+        Wide otherwise: [O + KB, V, 2] int32 {obs, max(wt, 0) or -1}.
+        Weights at or below 0 all act alike (saturated from the first
+        growth step, never grown), so they become 0. ``presat`` says
+        whether any present edge or slot has such a weight."""
+        cache = self.__dict__.setdefault("_kernel_words", {})
+        if L not in cache:
+            mask = torch.cat([self.emask, self.bmask])
+            wt = torch.cat([self.ewt, self.bwt]).to(torch.int64).clamp(min=0)
+            obs = torch.cat([self.eobs, self.bobs]).to(torch.int64)
+            presat = bool((mask & (wt == 0)).any())
+            narrow = L <= 23 and bool(
+                ((wt <= 255) & (obs >= 0) & (obs < (1 << L)) | ~mask).all())
+            if narrow:
+                w = torch.where(mask, ((wt + 1) << L) | obs, 0)
+                words = torch.where(w >= 1 << 31, w - (1 << 32), w)
+            else:
+                words = torch.stack([obs, torch.where(mask, wt, -1)], dim=-1)
+            cache[L] = (words.to(torch.int32).contiguous(), not narrow,
+                        presat)
+        return cache[L]
+
 
 class ChunkLanes(NamedTuple):
     """Label lanes that did not fit in the packed word (lane spilling,

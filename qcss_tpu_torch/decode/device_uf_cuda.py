@@ -2,8 +2,10 @@
 the reference's Mosaic kernels in `qcss_tpu.decode.device_uf_pallas`.
 
 `stencil_full` (`csrc/uf_stencil_full.cu`, for `make_full_kernel`)
-launches the whole decode: defect [B, V] -> (packed, act, chunk_vals), the
-same final state as the plain version `device_uf._stencil_plain`.
+launches the whole decode, one warp a shot over lists of live vertices:
+defect [B, V] -> (packed, act, chunk_vals), the same final state as the
+plain version `device_uf._stencil_plain`. It reads the graph as one word
+per edge (`StencilGraph.kernel_words`, narrow or wide by the graph).
 `decode_stencil_cuda` adds the label-lane extraction, the boundary
 cluster's odd-parity term and convergence (`device_uf._stencil_labels`).
 
@@ -13,12 +15,15 @@ and `make_round_kernel`) are the staged forms that
 `device_uf_staged`'s decodes call once or twice per growth round; their
 plain versions are `device_uf._prop_plain`, `_act_plain`, `_round_plain`.
 
-One block per shot exits on its own, so the TPU's tile picking, batch
-padding and shot sorting have no counterpart here. Every wrapper takes
+Each shot stops on its own, so the TPU's tile picking, batch padding and
+shot sorting have no counterpart here. Every wrapper takes
 CUDA tensors only and counts its launches.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -61,6 +66,29 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+@functools.lru_cache(maxsize=None)
+def _plan(V: int, O: int, KB: int, NC: int, wide: bool) -> dict:
+    """K1's launch plan at a shape (`qcss_uf_stencil_full_config`)."""
+    out = (ctypes.c_longlong * 6)()
+    _cuda.check(_cuda.load().qcss_uf_stencil_full_config(
+        V, O, KB, NC, int(wide), out), "qcss_uf_stencil_full_config")
+    keys = ("shots_per_block", "smem_bytes", "tables_in_smem", "shot_bytes",
+            "registers", "blocks_per_sm")
+    return dict(zip(keys, (int(x) for x in out)))
+
+
+def stencil_full_config(dg) -> dict:
+    """K1's launch plan at a graph's shape: shots (warps) per block, shared
+    memory per block, whether the tables are staged in shared memory,
+    bytes of one shot's state, registers per thread, resident blocks per
+    SM, and the edge-word form (needs the card: builds the kernels)."""
+    st = dg.stencil
+    _, wide, presat = st.kernel_words(dg.pack_shift)
+    return {**_plan(dg.num_nodes + 1, len(st.deltas), st.bmask.shape[0],
+                    len(st.chunks), wide),
+            "form": "wide" if wide else "narrow", "presat": presat}
+
+
 def stencil_full(dg, defect: torch.Tensor):
     """Launch the stencil kernel: defect [B, V] int32 (hub column zero) ->
     (packed [B, V] int32, act [B, V] int32, chunk_vals: one [B, V] int32
@@ -70,20 +98,29 @@ def stencil_full(dg, defect: torch.Tensor):
     B = defect.shape[0]
     _check_plane("defect", defect, (B, V))
     NC = len(st.chunks)
-    lib = _cuda.load()
-    smem = lib.qcss_uf_stencil_full_smem(V, O, KB, NC)
-    if smem > _cuda.MAX_SHARED_BYTES:
+    if 2 * O + KB > 32 or V > 1 << 16:
+        raise ValueError(f"the stencil kernel takes 2*O + KB <= 32 and "
+                         f"V <= 65536; got O={O}, KB={KB}, V={V}")
+    words, wide, presat = st.kernel_words(dg.pack_shift)
+    plan = _plan(V, O, KB, NC, wide)
+    if plan["shots_per_block"] == 0:
         raise ValueError(
-            f"the stencil kernel needs {smem} bytes of shared memory per "
-            f"block at V={V}, O={O}, KB={KB}, NC={NC}; the card has "
-            f"{_cuda.MAX_SHARED_BYTES}")
+            f"one shot of the stencil kernel needs {plan['shot_bytes']} bytes "
+            f"of shared memory at V={V}, O={O}, KB={KB}, NC={NC}; a block "
+            f"has {_cuda.MAX_SHARED_BYTES}")
+    # edges of weight 0: the plain version's batch-wide round loop runs its
+    # first round on every shot as soon as one shot has a defect; the
+    # launch finds that out on the card, in ``flag``
+    flag = torch.empty(1, dtype=torch.int32, device=defect.device) \
+        if presat else None
     ctab = st.kernel_chunk_tables if NC else tab
     packed = torch.empty_like(defect)
     act = torch.empty_like(defect)
     chunks = torch.empty((NC, B, V), dtype=torch.int32, device=defect.device)
-    err = lib.qcss_uf_stencil_full(
-        defect.data_ptr(), tab.data_ptr(), ctab.data_ptr(),
+    err = _cuda.load().qcss_uf_stencil_full(
+        defect.data_ptr(), words.data_ptr(), ctab.data_ptr(),
         deltas.data_ptr(), B, V, O, KB, NC, dg.pack_shift, dg.max_rounds,
+        int(wide), int(presat), flag.data_ptr() if presat else None,
         packed.data_ptr(), act.data_ptr(), chunks.data_ptr(),
         _stream(defect))
     _cuda.check(err, "qcss_uf_stencil_full")

@@ -11,6 +11,8 @@ Comparisons are exact: each kernel reproduces its plain version bit for
 bit (packed labels, activity, chunk words, obs, convergence).
 """
 
+from functools import lru_cache
+
 import numpy as np
 import pytest
 import torch
@@ -478,3 +480,138 @@ def test_measure_wrapper_checks_inputs(cuda):
     with pytest.raises(ValueError, match="x"):
         cuda_measure.measure_many_cuda(t.replace(x=t.x.to(torch.int64)),
                                        [0, 1], bits)
+
+
+# -- K1 on inputs that stress its live-vertex lists ------------------------
+
+def _k1_equal(dg, defect):
+    """K1 against its plain version on the card: packed, act, every chunk
+    plane, every lane and convergence, bit for bit; returns K1's output."""
+    from qcss_tpu_torch.decode import device_uf_cuda
+
+    before = device_uf_cuda.launches
+    out_k = device_uf_cuda.stencil_full(dg, defect)
+    assert device_uf_cuda.launches == before + 1
+    out_p = tdu._stencil_plain(dg, defect)
+    torch.cuda.synchronize()
+    assert torch.equal(out_k[0], out_p[0]) and torch.equal(out_k[1], out_p[1])
+    assert len(out_k[2]) == len(out_p[2]) == len(dg.stencil.chunks)
+    for a, b in zip(out_k[2], out_p[2]):
+        assert torch.equal(a, b)
+    lab_k, conv_k = tdu._stencil_labels(dg, defect, *out_k)
+    lab_p, conv_p = tdu._stencil_labels(dg, defect, *out_p)
+    for a, b in zip(lab_k, lab_p):
+        assert torch.equal(a, b)
+    assert torch.equal(conv_k, conv_p)
+    return out_k
+
+
+@lru_cache(maxsize=None)
+def _d11_fused(p):
+    code = rotated_surface(11)
+    raw = code.raw_parity_check_c2
+    g = circuit_level_graph(raw, extraction_gate_list(code, raw), 11,
+                            p_gate2=p, p_meas=1e-2,
+                            logicals=code.z_operator_matrix())
+    return g, tdu.build_device_graph(g)
+
+
+@pytest.mark.parametrize("p_dets", [0.01, 0.04])
+def test_stencil_kernel_lists_on_the_noisy_d11_graph(cuda, p_dets):
+    # p_gate2 = 1e-2 and dense defects: long member lists and frontiers;
+    # all-zero, single-defect and hub-adopting shots among them, and a
+    # batch that is no multiple of the shots per block
+    from qcss_tpu_torch.decode import device_uf_cuda
+
+    g, dg = _d11_fused(1e-2)
+    dg = dg.to(cuda)
+    plan = device_uf_cuda.stencil_full_config(dg)
+    assert plan["form"] == "narrow" and plan["shots_per_block"] > 1
+    B = 1000 if 1000 % plan["shots_per_block"] else 1001
+    defect = tdu.stencil_defect(dg, _dets(g, B, p_dets, seed=11, device=cuda))
+    defect[:6] = 0
+    defect[3, 100] = 1
+    defect[4, 700] = 1
+    defect[5, 0] = 1
+    packed, act, _ = _k1_equal(dg, defect)
+    bn = dg.num_nodes
+    hub_adopted = (packed[:, bn] >> dg.pack_shift) != bn
+    assert bool(hub_adopted.any())
+    assert not bool(act[:3].any())
+
+
+@pytest.mark.parametrize("B", [1, 1000])
+def test_stencil_kernel_lists_small_batches(cuda, B):
+    g, dg = _d11_fused(2e-3)
+    dg = dg.to(cuda)
+    _k1_equal(dg, tdu.stencil_defect(dg, _dets(g, B, 0.02, seed=B,
+                                               device=cuda)))
+
+
+@pytest.mark.parametrize("kind", ["phenomenological", "circuit-level"])
+def test_stencil_kernel_lists_on_the_d11_window_graphs(cuda, kind):
+    from qcss_tpu_torch.decode.device_streaming import DeviceStreamingDecoder
+
+    code = rotated_surface(11)
+    raw, lz = code.raw_parity_check_c2, code.z_operator_matrix()
+    if kind == "phenomenological":
+        dec = DeviceStreamingDecoder(raw, lz, window=8, commit=4,
+                                     p_space=0.004, p_time=0.004,
+                                     device=cuda)
+    else:
+        dec = DeviceStreamingDecoder.from_dem(
+            raw, lz, extraction_gate_list(code, raw), window=8, commit=4,
+            p_gate2=2e-3, p_meas=1e-2, device=cuda)
+    mid = dec._mid
+    assert len(mid.stencil.chunks) == 2
+    rng = np.random.default_rng(7)
+    dets = torch.as_tensor((rng.random((777, mid.num_nodes)) < 0.02)
+                           .astype(np.uint8), device=cuda)
+    _k1_equal(mid, tdu.stencil_defect(mid, dets))
+
+
+@pytest.mark.parametrize("change", ["zero weights", "wide weights"])
+def test_stencil_kernel_edge_word_forms(cuda, change):
+    # weight 0 (saturated from the first round, also in shots without
+    # defects while another shot has some) and weights above 255 (the
+    # wide word form)
+    from qcss_tpu_torch.decode import device_uf_cuda
+
+    g, dg = _d11_fused(1e-2)
+    st = dg.stencil
+    ewt, bwt = st.ewt.clone(), st.bwt.clone()
+    if change == "zero weights":
+        ewt[:, ::9] = 0
+        bwt[:, 1::7] = 0
+    else:
+        ewt[:, ::5] = 300
+        bwt = bwt * 2 + 255
+    dg = dg._replace(stencil=st._replace(ewt=ewt, bwt=bwt)).to(cuda)
+    plan = device_uf_cuda.stencil_full_config(dg)
+    assert plan["presat"] == (change == "zero weights")
+    assert plan["form"] == ("wide" if change == "wide weights" else "narrow")
+    defect = tdu.stencil_defect(dg, _dets(g, 513, 0.01, seed=5, device=cuda))
+    defect[:2] = 0
+    _k1_equal(dg, defect)
+    # a batch whose only defect is in its last shot, and one with none
+    defect[:-1] = 0
+    _k1_equal(dg, defect)
+    _k1_equal(dg, torch.zeros_like(defect))
+
+
+# -- K7 at every register width, ragged shapes -----------------------------
+
+@pytest.mark.parametrize("W", list(range(1, 9)) + [9, 13])
+def test_transposed_syndrome_kernel_widths(cuda, W):
+    from qcss_tpu_torch.ops import cuda_gf2
+
+    rng = np.random.default_rng(W)
+    for R in (1, 31, 32, 33, 60, 97):
+        for B in (1, 1000, 4099):
+            h = _words(rng, (R, W)).to(cuda)
+            e_t = _words(rng, (W, B)).to(cuda)
+            assert bool((e_t < 0).any()) or B == 1  # bit 31 set
+            got = cuda_gf2.syndromes_packed_t_cuda(e_t, h)
+            want = cuda_gf2.syndromes_packed_t_plain(e_t, h)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (W, R, B)
