@@ -28,7 +28,9 @@ measurement kernel K9:
    distance of the syndrome sweep (B = 2^20, and 1000 at d=11), K8 on
    random words at Steane and Golay (B = 2^22), and K8 then K6 on the
    headline's own inputs (Steane errors from its sampler, B = 2^22,
-   W = 1, one logical row);
+   W = 1, one logical row), and K6 and K8 where their instances split
+   (views one word past a 16-byte boundary, ragged batches, R = 1, 60
+   and 61, W = 13, LUTs of 2^14 and 2^16 rows);
    then K1 on graphs with spilled lanes (the d=11 mid-window graphs of
    the streaming decoder, phenomenological and circuit-level: packed,
    activity, every chunk plane, every lane and convergence), K3, K4 and
@@ -72,7 +74,11 @@ measurement kernel K9:
    of its shapes (shots running, live vertices and sweeps per round,
    counted with the plain version on the card; the bound counts those
    candidate reads); times K7 alone and through its wrapper at every
-   sweep distance; and times one round's decode at the headline's shape
+   sweep distance; times K6 and K8 through their wrappers and, as device
+   time a launch from a CUDA graph, alone on one buffer and over data
+   larger than the L2, at their four shapes and at B=2^10
+   (`benchmarks/gf2_bench.py`), and prints their launch plans; and times
+   one round's decode at the headline's shape
    in the packed form the Monte Carlo runs and in the reference's dense
    forms.
 
@@ -119,12 +125,6 @@ TAB_QUBITS = (49, 121, 363)
 K9_OPS_ROWSUM_WORD = 18
 K9_OPS_PRODUCT_WORD = 8
 Z999 = 3.2905
-# the least time the card could take: device memory at 3.35 TB/s (NVIDIA's
-# H100 SXM data sheet); 32-bit integer instructions at 64 lanes per SM per
-# clock (the Hopper SM), times the SM count and the card's top SM clock as
-# this run reads them. The data sheet gives no integer rate.
-HBM_BYTES_PER_S = 3.35e12
-INT32_LANES_PER_SM = 64
 
 
 def log(msg: str) -> None:
@@ -136,23 +136,6 @@ def run_text(cmd: list[str]) -> str:
     if proc.returncode != 0:
         raise RuntimeError(f"{cmd[0]} failed: {proc.stderr.strip()}")
     return proc.stdout.strip()
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call of ``fn`` on the card (CUDA events),
-    after one warm-up call."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
 
 
 def max_abs(a, b) -> int:
@@ -170,15 +153,6 @@ def max_abs_words(a, b) -> int:
 
     return max_abs(a.to(torch.int64) & 0xFFFFFFFF,
                    b.to(torch.int64) & 0xFFFFFFFF)
-
-
-def bound(nbytes: float, ops: float = 0.0,
-          ops_per_s: float = float("inf")) -> tuple[float, str]:
-    """(bound in ms, what bounds it): the larger of the bytes over the
-    memory rate and the integer operations over ``ops_per_s``."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ops_per_s * 1e3
-    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
 def two_sample_ok(k1: int, n1: int, k2: int, n2: int) -> tuple[bool, float]:
@@ -323,6 +297,8 @@ def k1_report(label, device_uf_cuda, duf, dg, defect, int_ops_per_s):
     input and output byte once (defects in, labels, activity and chunk
     words out, the edge words and chunk tables) and the candidate reads of
     `k1_work` as integer operations."""
+    from qcss_tpu_torch.benchmarks.profiling import bound
+
     st = dg.stencil
     B, V = defect.shape
     NC = len(st.chunks)
@@ -417,6 +393,7 @@ def tableau_slice(dev, int_ops_per_s):
     import torch
 
     from qcss_tpu_torch.benchmarks import tableau_bench
+    from qcss_tpu_torch.benchmarks.profiling import bound, cuda_ms
     from qcss_tpu_torch.circuits.ir import Circuit
     from qcss_tpu_torch.codes import families
     from qcss_tpu_torch.experiments.memory import (
@@ -583,11 +560,18 @@ def main() -> int:
 
     from qcss_tpu_torch import _cuda
     from qcss_tpu_torch.benchmarks import (
+        gf2_bench,
         steane_mc,
         stream_bench,
         syndrome_sweep,
     )
     from qcss_tpu_torch.benchmarks.device_uf_bench import build_pipeline
+    from qcss_tpu_torch.benchmarks.profiling import (
+        bound,
+        cuda_ms,
+        host_ms,
+        int_ops_per_s as card_int_ops_per_s,
+    )
     from qcss_tpu_torch.benchmarks.device_uf_bench import run as bench_run
     from qcss_tpu_torch.codes import families
     from qcss_tpu_torch.codes.families import rotated_surface
@@ -628,13 +612,9 @@ def main() -> int:
         f"torch.version.cuda {torch.version.cuda}  triton {triton_version}")
     log(f"nvcc: {nvcc_version}")
     log(f"card: {smi}  (device count {torch.cuda.device_count()})")
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    clock_mhz = float(run_text(["nvidia-smi", "--query-gpu=clocks.max.sm",
-                                "--format=csv,noheader,nounits"]
-                               ).splitlines()[0])
-    int_ops_per_s = sms * INT32_LANES_PER_SM * clock_mhz * 1e6
-    log(f"integer bound rate: {sms} SMs x {INT32_LANES_PER_SM} lanes x "
-        f"{clock_mhz:.0f} MHz = {int_ops_per_s:.4g} ops/s")
+    int_ops_per_s = card_int_ops_per_s()
+    log(f"integer bound rate: SMs x 64 lanes x the top SM clock = "
+        f"{int_ops_per_s:.4g} ops/s")
 
     # -- 2. build
     t0 = time.perf_counter()
@@ -810,6 +790,36 @@ def main() -> int:
         log(f"K8 then K6 == plain versions on the headline's {sector} "
             f"sector (B={MC_BATCH}, W={words.shape[1]}, "
             f"k={sec.logicals.shape[0]}): {int(p6.sum())} logical flips")
+    # K6 and K8 where their instances split: a view one word past a
+    # 16-byte boundary (the generic instance), ragged batches, R = 1, 60
+    # and 61, a wide check, and K8 LUTs of 2^14 rows (64 KB, staged in
+    # shared memory past 48 KB) and 2^16 (256 KB, gathered from device
+    # memory)
+    for W, R, B in ((1, 1, 1000003), (4, 60, 4097), (4, 61, 4097),
+                    (13, 61, 1001), (1, 14, 100003), (3, 14, 4099),
+                    (1, 16, 100003)):
+        h = random_words(gen_w, (R, W))
+        lut = random_words(gen_w, (1 << R, W)) if R <= 16 else None
+        for offset in (0, 1):
+            e = random_words(gen_w, (B * W + offset,))[offset:].view(B, W)
+            k6, p6 = cuda_gf2.syndromes_packed_cuda(e, h), \
+                cuda_gf2.syndromes_packed_plain(e, h)
+            k8, p8 = (cuda_gf2.decode_residual_packed_cuda(e, h, lut),
+                      cuda_gf2.decode_residual_packed_plain(e, h, lut)) \
+                if lut is not None else (e, e)
+            torch.cuda.synchronize()
+            k6_err = max(k6_err, max_abs(k6, p6))
+            k8_err = max(k8_err, max_abs_words(k8, p8))
+            if k6_err or k8_err or not (torch.equal(k6, p6)
+                                        and torch.equal(k8, p8)):
+                raise RuntimeError(
+                    f"K6/K8 disagree with their plain versions at W={W} "
+                    f"R={R} B={B} offset={offset} (max abs err {k6_err}, "
+                    f"{k8_err})")
+            plan = cuda_gf2.launch_plan("syndromes_packed", e, h)
+            log(f"K6{' and K8' if lut is not None else ''} == plain "
+                f"versions at W={W} R={R} B={B}, a view {offset} word(s) "
+                f"into its buffer (instance {plan['instance']})")
 
 
     # -- 5b. K1 on graphs with spilled lanes: the streaming decoder's d=11
@@ -1205,83 +1215,65 @@ def main() -> int:
             f"{staged[key]['plain_ms']:.3f} ms, bound "
             f"{staged[key]['bound_ms']:.4f} ms ({staged[key]['bound_by']})")
 
-    def packed_times(label, kernel, plain, args, dense_args, nbytes, ops):
-        """Times of a packed kernel, its plain version and (dense_args)
-        the dense matmul form, and the kernel's bound; the kernel's output
-        is held against the plain version's on the same inputs."""
-        err = max_abs_words(kernel(*args), plain(*args))
-        if err:
-            raise RuntimeError(f"{label}: the kernel disagrees with its "
-                               f"plain version (max abs err {err})")
-        out = {"ms": cuda_ms(lambda: kernel(*args), 20),
-               "plain_ms": cuda_ms(lambda: plain(*args), 3),
-               "library_ms": (cuda_ms(lambda: gf2_torch.syndromes_dense(
-                   *dense_args), 20) if dense_args else None)}
-        out["bound_ms"], out["bound_by"] = bound(nbytes, ops, int_ops_per_s)
-        log(f"{label}: kernel {out['ms']:.4f} ms (== plain), plain "
-            f"{out['plain_ms']:.4f} ms, dense matmul form "
-            f"{out['library_ms']} ms, bound {out['bound_ms']:.4f} ms "
-            f"({out['bound_by']})")
-        return out, err
-
     # Integer operations counted per (shot, check row): one LOP3 per word
     # for acc ^= e & h, a popcount, and one or two to place the bit (K6:
     # & 1; K7: shift, or; K8: shift-or into the index); K8 adds one XOR
     # per word. Each input byte is read once and each output written once.
-    # K6 and K8 where the headline runs them: Steane, B = 2^22, one word
-    x_sec = sectors[0]
-    resid_bits = (torch.rand((MC_BATCH, steane.n), generator=gen_w,
-                             device=dev) < 0.02).to(torch.uint8)
-    resid = packed(resid_bits, dev)
-    R, W = x_sec.checks.shape
-    K = x_sec.logicals.shape[0]
+    # K6 and K8 (`gf2_bench`, which holds each against its plain version
+    # first) at the headline's shapes (Steane, B = 2^22, one word), K8 on
+    # Golay, K6 at d=11 and each at B=2^10 (their fixed cost): ms through
+    # the wrapper, as every kernel here, and the device time a launch of
+    # the bare C entry point from a CUDA graph, on one buffer (hot) and
+    # over copies of the data larger than the L2 (cold)
+    gf2_rows = gf2_bench.run(reps=100, ops_per_s=int_ops_per_s)
     times = {}
-    times["K6"], err = packed_times(
-        f"K6 on the headline's residuals (B={MC_BATCH}, k={K}, W={W})",
-        cuda_gf2.syndromes_packed_cuda, cuda_gf2.syndromes_packed_plain,
-        (resid, x_sec.logicals),
-        (resid_bits, x_sec.logicals.new_tensor(steane.z_operator_matrix())),
-        4 * MC_BATCH * W + 4 * K * W + MC_BATCH * K,
-        MC_BATCH * K * (W + 2))
-    k6_err = max(k6_err, err)
-    times["K8"], err = packed_times(
-        f"K8 on the headline's errors (Steane, B={MC_BATCH}, R={R}, W={W})",
-        cuda_gf2.decode_residual_packed_cuda,
-        cuda_gf2.decode_residual_packed_plain,
-        (resid, x_sec.checks, x_sec.lut), None,
-        4 * (2 * MC_BATCH * W + R * W + (1 << R) * W),
-        MC_BATCH * (R * (W + 3) + W))
-    k8_err = max(k8_err, err)
-    hg, lg = luts["golay"]
-    _, err = packed_times(
-        f"K8 on Golay (B={MC_BATCH}, R={hg.shape[0]}, LUT {tuple(lg.shape)})",
-        cuda_gf2.decode_residual_packed_cuda,
-        cuda_gf2.decode_residual_packed_plain,
-        (resid, hg, lg), None,
-        4 * (2 * MC_BATCH + hg.numel() + lg.numel()),
-        MC_BATCH * (hg.shape[0] * 4 + 1))
-    k8_err = max(k8_err, err)
-    # K7 where the sweep runs it hardest, and K6 at the same shape: d=11
+    for row in gf2_rows:
+        log(f"{row['name']} B={row['B']} (R={row['R']}, W={row['W']}): "
+            f"through the wrapper {row['ms']:.4f} ms (host "
+            f"{row['host_ms']:.4f} ms a call); a launch in a graph "
+            f"{row['hot_ms']:.4f} ms, over data larger than the L2 "
+            f"{row['cold_ms']} ms; plain {row['plain_ms']:.4f} ms, dense "
+            f"matmul form {row['library_ms']} ms; bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        if row["B"] >= SWEEP_BATCH and "uniform" not in row["name"]:
+            kern = ("decode_residual_packed" if row["name"].startswith("K8")
+                    else "syndromes_packed")
+            e = torch.empty((1, row["W"]), dtype=torch.int32, device=dev)
+            h = torch.empty((row["R"], row["W"]), dtype=torch.int32,
+                            device=dev)
+            log(f"{row['name']} plan: {cuda_gf2.launch_plan(kern, e, h)}")
+    for key, name in (("K6", "K6 headline residual check"),
+                      ("K8", "K8 Steane")):
+        head = next(r for r in gf2_rows
+                    if r["name"] == name and r["B"] == MC_BATCH)
+        times[key] = {k: head[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "hot_ms",
+            "cold_ms", "host_ms")}
+        times[key]["by_shape"] = [
+            r for r in gf2_rows if r["name"].startswith(key) and r is not head]
+    # K7 where the sweep runs it hardest: d=11
     e_bits = (torch.rand((SWEEP_BATCH, code.n), generator=gen_w,
                          device=dev) < 0.5).to(torch.uint8)
-    e11 = packed(e_bits, dev)
+    e11_t = packed(e_bits, dev).T.contiguous()
     h11_bits = torch.as_tensor(code.parity_check_c2, device=dev)
     R11, W11 = h11.shape
-    times["K7"], err = packed_times(
-        f"K7 at d={D} (B={SWEEP_BATCH}, R={R11}, W={W11})",
-        cuda_gf2.syndromes_packed_t_cuda, cuda_gf2.syndromes_packed_t_plain,
-        (e11.T.contiguous(), h11), (e_bits, h11_bits),
-        4 * (W11 * SWEEP_BATCH + R11 * W11
-             + (R11 + 31) // 32 * SWEEP_BATCH),
-        SWEEP_BATCH * R11 * (W11 + 3))
-    k7_err = max(k7_err, err)
-    _, err = packed_times(
-        f"K6 at d={D} (B={SWEEP_BATCH}, R={R11}, W={W11})",
-        cuda_gf2.syndromes_packed_cuda, cuda_gf2.syndromes_packed_plain,
-        (e11, h11), (e_bits, h11_bits),
-        4 * (W11 * SWEEP_BATCH + R11 * W11) + R11 * SWEEP_BATCH,
-        SWEEP_BATCH * R11 * (W11 + 2))
-    k6_err = max(k6_err, err)
+    k7 = lambda: cuda_gf2.syndromes_packed_t_cuda(e11_t, h11)
+    k7_plain = lambda: cuda_gf2.syndromes_packed_t_plain(e11_t, h11)
+    err = max_abs_words(k7(), k7_plain())
+    if err:
+        raise RuntimeError(f"K7 disagrees with its plain version at d={D} "
+                           f"(max abs err {err})")
+    times["K7"] = {"ms": cuda_ms(k7, 20), "plain_ms": cuda_ms(k7_plain, 3),
+                   "library_ms": cuda_ms(lambda: gf2_torch.syndromes_dense(
+                       e_bits, h11_bits), 20)}
+    times["K7"]["bound_ms"], times["K7"]["bound_by"] = bound(
+        4 * (W11 * SWEEP_BATCH + R11 * W11 + (R11 + 31) // 32 * SWEEP_BATCH),
+        SWEEP_BATCH * R11 * (W11 + 3), int_ops_per_s)
+    log(f"K7 at d={D} (B={SWEEP_BATCH}, R={R11}, W={W11}): kernel "
+        f"{times['K7']['ms']:.4f} ms (== plain), plain "
+        f"{times['K7']['plain_ms']:.4f} ms, dense matmul form "
+        f"{times['K7']['library_ms']:.4f} ms, bound "
+        f"{times['K7']['bound_ms']:.4f} ms ({times['K7']['bound_by']})")
     # K7 at the sweep's smaller distances, where an application is short:
     # the kernel alone (the C entry point on a preallocated output), the
     # wrapper's call (checks and allocation included), both by CUDA events
@@ -1308,13 +1300,8 @@ def main() -> int:
         k7_err = max(k7_err, err)
         wrap = lambda e_t=e_t, hd=hd: cuda_gf2.syndromes_packed_t_cuda(e_t, hd)
         row = {"R": Rd, "W": Wd, "kernel_ms": cuda_ms(bare, 50),
-               "wrapper_ms": cuda_ms(wrap, 50)}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(50):
-            wrap()
-        row["wrapper_host_ms"] = (time.perf_counter() - t0) * 1e3 / 50
-        torch.cuda.synchronize()
+               "wrapper_ms": cuda_ms(wrap, 50),
+               "wrapper_host_ms": host_ms(wrap, 50)}
         row["bound_ms"], row["bound_by"] = bound(
             4 * (Wd * SWEEP_BATCH + Rd * Wd + (Rd + 31) // 32 * SWEEP_BATCH),
             SWEEP_BATCH * Rd * (Wd + 3), int_ops_per_s)

@@ -131,6 +131,8 @@ def load() -> ctypes.CDLL:
         lib.qcss_decode_residual_packed.argtypes = [
             ptr, ptr, ptr, i64, i32, i32, ptr, ptr]
         lib.qcss_decode_residual_packed.restype = i32
+        lib.qcss_gf2_packed_config.argtypes = [i32, i32, i32, ptr, ptr, ptr]
+        lib.qcss_gf2_packed_config.restype = i32
         lib.qcss_chp_measure.argtypes = [
             ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32, ptr, ptr, ptr,
             ptr, ptr]

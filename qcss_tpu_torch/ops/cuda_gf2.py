@@ -18,6 +18,8 @@ counterpart: the kernels take any batch.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from qcss_tpu_torch import _cuda
@@ -42,6 +44,34 @@ def _check_words(name: str, t: torch.Tensor, device) -> None:
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+_PLAN_KEYS = ("instance", "shots_per_thread", "lanes", "tile_shots",
+              "smem_bytes", "checks_in_smem", "lut_in_smem",
+              "resident_blocks", "registers")
+
+
+def launch_plan(kernel: str, errors: torch.Tensor,
+                checks: torch.Tensor) -> dict:
+    """How K6 (``kernel="syndromes_packed"``) or K8
+    (``"decode_residual_packed"``) launches on these inputs, with an
+    output as its wrapper allocates it: the instance (W for a 16-byte
+    aligned ``errors`` with W <= 4, else 0, the generic instance), shots a
+    thread a tile, lanes (threads of a block that own shots), shots a
+    tile, shared memory a block, whether the checks and the LUT are staged
+    in it, the blocks the card holds at once (the persistent grid's cap)
+    and registers a thread (`qcss_gf2_packed_config`; needs the card)."""
+    which = {"syndromes_packed": 6, "decode_residual_packed": 8}[kernel]
+    W = errors.shape[1]
+    out = (ctypes.c_longlong * len(_PLAN_KEYS))()
+    # a fresh output from the caching allocator is 16-byte aligned
+    _cuda.check(_cuda.load().qcss_gf2_packed_config(
+        which, W, checks.shape[0], errors.data_ptr(), 0, out),
+        "qcss_gf2_packed_config")
+    plan = dict(zip(_PLAN_KEYS, (int(x) for x in out)))
+    plan["checks_in_smem"] = bool(plan["checks_in_smem"])
+    plan["lut_in_smem"] = bool(plan["lut_in_smem"])
+    return plan
 
 
 # -- K6: syndromes, [B, W] -> [B, R] bits --------------------------------------

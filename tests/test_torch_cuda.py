@@ -16,7 +16,9 @@ from functools import lru_cache
 import numpy as np
 import pytest
 import torch
+from test_torch_gf2_schedule import _plan
 
+from qcss_tpu_torch import _cuda
 from qcss_tpu_torch.codes.families import rotated_surface
 from qcss_tpu_torch.decode import device_sparse as tds
 from qcss_tpu_torch.decode import device_uf as tdu
@@ -615,3 +617,76 @@ def test_transposed_syndrome_kernel_widths(cuda, W):
             want = cuda_gf2.syndromes_packed_t_plain(e_t, h)
             torch.cuda.synchronize()
             assert torch.equal(got, want), (W, R, B)
+
+
+# -- K6 and K8: every instance, ragged batches, misaligned views ----------
+
+_PACKED_WIDTHS = list(range(1, 10)) + [13]
+_PACKED_BATCHES = [1, 3, 1000, (1 << 20) + 3]
+
+
+def _plan_of(plan):
+    """A launch plan as the CPU model of the partition states it."""
+    return (plan["instance"], plan["shots_per_thread"], plan["lanes"],
+            plan["smem_bytes"])
+
+
+def _words_view(rng, B, W, offset, device):
+    """[B, W] random words whose storage starts ``offset`` words into its
+    buffer (offset 1: a contiguous view that is not 16-byte aligned)."""
+    flat = _words(rng, (B * W + offset,)).to(device)
+    return flat[offset:].view(B, W)
+
+
+@pytest.mark.parametrize("B", _PACKED_BATCHES)
+@pytest.mark.parametrize("W", _PACKED_WIDTHS)
+def test_syndrome_kernel_shapes(cuda, W, B):
+    from qcss_tpu_torch.ops import cuda_gf2
+
+    rng = np.random.default_rng(100 * W + B % 97)
+    for R in (1, 3, 11, 60, 61, 200):
+        h = _words(rng, (R, W)).to(cuda)
+        for offset in (0, 1):
+            e = _words_view(rng, B, W, offset, cuda)
+            assert bool((e < 0).any()) or B * W < 8  # bit 31 set
+            plan = cuda_gf2.launch_plan("syndromes_packed", e, h)
+            assert plan["instance"] == (W if W <= 4 and not offset else 0)
+            assert _plan_of(plan) == _plan("K6", W, R, offset)
+            got = cuda_gf2.syndromes_packed_cuda(e, h)
+            want = cuda_gf2.syndromes_packed_plain(e, h)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (W, B, R, offset)
+
+
+@pytest.mark.parametrize("B", _PACKED_BATCHES)
+@pytest.mark.parametrize("W", _PACKED_WIDTHS)
+def test_residual_decode_kernel_shapes(cuda, W, B):
+    from qcss_tpu_torch.ops import cuda_gf2
+
+    rng = np.random.default_rng(200 * W + B % 97)
+    # 2^14 and 2^16 LUT rows at W = 1 are 64 KB (staged in shared memory)
+    # and 256 KB (gathered from device memory)
+    for R in (1, 3, 11, 14, 16):
+        h = _words(rng, (R, W)).to(cuda)
+        lut = _words(rng, (1 << R, W)).to(cuda)
+        for offset in (0, 1):
+            e = _words_view(rng, B, W, offset, cuda)
+            plan = cuda_gf2.launch_plan("decode_residual_packed", e, h)
+            assert plan["instance"] == (W if W <= 4 and not offset else 0)
+            assert _plan_of(plan) == _plan("K8", W, R, offset)
+            assert plan["lut_in_smem"] == (4 * W << R <= _cuda.MAX_SHARED_BYTES
+                                           - 4 * ((R * W + 3) // 4 * 4))
+            got = cuda_gf2.decode_residual_packed_cuda(e, h, lut)
+            want = cuda_gf2.decode_residual_packed_plain(e, h, lut)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (W, B, R, offset)
+
+
+def test_packed_kernels_take_an_empty_batch(cuda):
+    from qcss_tpu_torch.ops import cuda_gf2
+
+    e = torch.zeros((0, 2), dtype=torch.int32, device=cuda)
+    h = torch.ones((3, 2), dtype=torch.int32, device=cuda)
+    lut = torch.ones((8, 2), dtype=torch.int32, device=cuda)
+    assert cuda_gf2.syndromes_packed_cuda(e, h).shape == (0, 3)
+    assert cuda_gf2.decode_residual_packed_cuda(e, h, lut).shape == (0, 2)
