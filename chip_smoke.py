@@ -68,8 +68,15 @@ measurement kernel K9:
    engine='tableau' must equal engine='frames' bit for bit;
 9. times each kernel, its plain version and (K6, K7) the dense matmul
    form at the main paths' shapes, beside each kernel's bound, checking
-   each timed output against the plain version's (K9 at n = 121 and 363,
-   B=4096, M=32 on the ladder state); prints K1's launch plan (shots a
+   each timed output against the plain version's; K9 and K2 through
+   `benchmarks/measure_sparse_bench.py` (the wrapper, and a launch in a
+   CUDA graph hot and cold over data 3x the L2): K9 at n = 49, 121, 363,
+   B=4096, M=32 on the ladder state (random branch) and at n = 121, 363 on
+   measured-once random Clifford states (deterministic branch), each with
+   its launch plan (form, shots a block, shared memory, registers); K2 at
+   d=11, B=16384, d_max=48 with its plan, its defects, events, mask
+   builds and sweeps a shot, and a bound from its bytes and the pair tests
+   (event searches, mask builds) a walk of its plain version counts; prints K1's launch plan (shots a
    block, shared memory, registers) and the work its data need at both
    of its shapes (shots running, live vertices and sweeps per round,
    counted with the plain version on the card; the bound counts those
@@ -115,15 +122,6 @@ WINDOW, COMMIT = 8, 4
 TAB_BATCH = 4096
 TAB_CHECK_BATCH = 1024
 TAB_QUBITS = (49, 121, 363)
-# K9's integer instructions, counted per word of each row a branch
-# touches: a random-branch rowsum builds the plus and minus masks (12
-# three-input logic ops), takes two popcounts, adds both into g and XORs
-# the pivot's two words in (18); the deterministic product takes
-# popc(x & z) and its sum, folds z into the local XOR, and does
-# popc(x & prefix), its sum and the running XOR for the scan (8). Every
-# measurement also tests the measured bit of every row (1 a row).
-K9_OPS_ROWSUM_WORD = 18
-K9_OPS_PRODUCT_WORD = 8
 Z999 = 3.2905
 
 
@@ -176,31 +174,6 @@ def packed(bits, device):
     from qcss_tpu_torch.ops import gf2_torch
 
     return gf2_torch.words32(gf2_torch.pack_bits(bits)).to(device)
-
-
-def sparse_bytes(dets, d_max: int) -> int:
-    """Bytes K2 must move on these detectors: the detector rows, the
-    distance entries between the defects each shot decodes (its first
-    d_max, each distinct entry once), the per-detector tables of the
-    fired detectors, and obs and converged out."""
-    import torch
-
-    B, V = dets.shape
-    defect = dets.to(torch.int64) & 1
-    rank = torch.cumsum(defect, dim=1) - defect
-    keep = (defect > 0) & (rank < d_max)
-    b_idx, v_idx = keep.nonzero(as_tuple=True)
-    pairs = torch.zeros(V * V, dtype=torch.bool, device=dets.device)
-    slot = rank[b_idx, v_idx]
-    ids = torch.full((B, d_max), -1, dtype=torch.int64, device=dets.device)
-    ids[b_idx, slot] = v_idx
-    a, c = ids[:, :, None], ids[:, None, :]
-    ok = (a >= 0) & (c >= 0) & (a != c)
-    pairs[(a * V + c)[ok]] = True
-    fired = torch.zeros(V, dtype=torch.bool, device=dets.device)
-    fired[v_idx] = True
-    return (B * V + 4 * int(pairs.sum()) + 3 * 4 * int(fired.sum())
-            + 2 * 4 * B)
 
 
 def round_states(duf, dg, defect, rounds: int):
@@ -329,61 +302,6 @@ def k1_report(label, device_uf_cuda, duf, dg, defect, int_ops_per_s):
         nbytes, reads, int_ops_per_s)
 
 
-def k9_walk(tp, t, qubits, bits):
-    """K9's plain version one measurement at a time (`_measure_z`, which
-    `tableau_packed.measure_many` loops over), with what each (shot,
-    measured qubit) took: (state, outcomes, random [B, M] bool, rows
-    [B, M]) where rows counts, for a random outcome, the anticommuting rows
-    other than the pivot (the rowsums) and, for a deterministic one, the
-    selected stabilizer rows."""
-    import torch
-
-    n = t.n
-    outs, rand, rows = [], [], []
-    for m, q in enumerate(int(v) for v in qubits):
-        xq = tp._col_bit(t.x, q)
-        is_rand = (xq[:, n:] == 1).any(dim=1)
-        rows.append(torch.where(is_rand, xq.sum(1, dtype=torch.int64) - 1,
-                                xq[:, :n].sum(1, dtype=torch.int64)))
-        rand.append(is_rand)
-        t, out = tp._measure_z(t, q, bits[:, m])
-        outs.append(out)
-    return (t, torch.stack(outs, 1), torch.stack(rand, 1),
-            torch.stack(rows, 1))
-
-
-def k9_ops(t, rand, rows) -> int:
-    """K9's integer operations on a tableau for the branches the walk
-    recorded (K9_OPS_* above)."""
-    import torch
-
-    W = t.x.shape[2]
-    per_word = torch.where(rand, K9_OPS_ROWSUM_WORD, K9_OPS_PRODUCT_WORD)
-    return int((rows * per_word).sum()) * W + rand.numel() * 2 * t.n
-
-
-def k9_bytes(t, m: int) -> int:
-    """Bytes K9 must move: x, z and r in and out, the collapse bits, the
-    measured qubits and the outcomes."""
-    B, two_n, W = t.x.shape
-    return 2 * (2 * 4 * B * two_n * W + B * two_n) + 2 * B * m + 4 * m
-
-
-def random_clifford_packed(tp, Circuit, n, B, seed, device):
-    """A packed tableau after a random Clifford circuit of depth 4n (the
-    gate mix of tests/test_pallas_measure.py), and the circuit's rng."""
-    import numpy as np
-
-    names = ["I", "X", "Y", "Z", "H", "S", "CNOT", "CZ"]
-    rng = np.random.default_rng(seed)
-    circ = Circuit()
-    for _ in range(4 * n):
-        k = int(rng.integers(0, 8))
-        a, b = (int(v) for v in rng.choice(n, 2, replace=False))
-        circ.gate(names[k], *((a,) if k < 6 else (a, b)))
-    return tp.run_circuit(tp.zero_state(B, n, device), circ), rng
-
-
 def tableau_slice(dev, int_ops_per_s):
     """Main path 6: K9 against its plain version, the tableau bench and
     the block engine (counted), the tableau memory engine against the
@@ -392,9 +310,8 @@ def tableau_slice(dev, int_ops_per_s):
     import numpy as np
     import torch
 
+    from qcss_tpu_torch.benchmarks import measure_sparse_bench as msb
     from qcss_tpu_torch.benchmarks import tableau_bench
-    from qcss_tpu_torch.benchmarks.profiling import bound, cuda_ms
-    from qcss_tpu_torch.circuits.ir import Circuit
     from qcss_tpu_torch.codes import families
     from qcss_tpu_torch.experiments.memory import (
         x_memory_experiment,
@@ -415,7 +332,7 @@ def tableau_slice(dev, int_ops_per_s):
         bits = tb.collapse_bits(torch.Generator(device=dev).manual_seed(seed),
                                 t.batch, len(qs))
         tk, ok = cuda_measure.measure_many_cuda(t, qs, bits)
-        tpl, op, rand, _ = k9_walk(tp, t, qs, bits)
+        tpl, op, rand, _ = msb.k9_walk(t, qs, bits)
         torch.cuda.synchronize()
         err = max(max_abs(ok, op), max_abs_words(tk.x, tpl.x),
                   max_abs_words(tk.z, tpl.z), max_abs(tk.r, tpl.r))
@@ -434,8 +351,7 @@ def tableau_slice(dev, int_ops_per_s):
     k9_err = 0
     forms = set()
     for n in (7, 40, 121, 363, 720):
-        t, rng = random_clifford_packed(tp, Circuit, n, TAB_CHECK_BATCH, n,
-                                        dev)
+        t, rng = msb.random_clifford(n, TAB_CHECK_BATCH, n, dev)
         first = rng.choice(n, min(n, 24), replace=False)
         qs = np.concatenate([first, first[:8]])  # repeats: deterministic
         if n > 32:
@@ -504,40 +420,44 @@ def tableau_slice(dev, int_ops_per_s):
             f"frames, logical_fail {a['logical_fail']:.6f}, residual "
             f"{a['residual_syndrome']:.6f}")
 
-    # -- (d) K9's times at the bench's shapes: the kernel (collapse bits
-    #    drawn beforehand), its plain version, and its bound from the
-    #    branches the walk recorded
-    entry = {}
-    for n in (121, 363):
-        t = ladder(n, TAB_BATCH)
-        qs = tableau_bench.measured_qubits(n)
-        bits = tb.collapse_bits(torch.Generator(device=dev).manual_seed(n),
-                                TAB_BATCH, len(qs))
-        tpl, op, rand, rows = k9_walk(tp, t, qs, bits)
-        tk, ok = cuda_measure.measure_many_cuda(t, qs, bits)
-        err = max(max_abs(ok, op), max_abs_words(tk.x, tpl.x),
-                  max_abs_words(tk.z, tpl.z), max_abs(tk.r, tpl.r))
-        if err:
-            raise RuntimeError(f"K9 disagrees at n={n}, B={TAB_BATCH}")
-        k9_err = max(k9_err, err)
-        ms = cuda_ms(lambda: cuda_measure.measure_many_cuda(t, qs, bits), 10)
-        plain_ms = cuda_ms(lambda: tp.measure_many(t, qs, rand_bits=bits), 2)
-        ops = k9_ops(t, rand, rows)
-        bound_ms, bound_by = bound(k9_bytes(t, len(qs)), ops, int_ops_per_s)
-        entry[n] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "library_ms": None,
-                    "random_share": float(rand.to(torch.float32).mean()),
-                    "shape": f"B={TAB_BATCH} n={n} W={t.words} "
-                             f"M={len(qs)} (ladder state)"}
-        log(f"K9 n={n} B={TAB_BATCH} M={len(qs)}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
-            f"{ops:.4g} integer ops, {entry[n]['random_share']:.4f} of the "
-            f"outcomes random)")
+    # -- (d) K9's times and bounds (benchmarks/measure_sparse_bench.py):
+    #    the ladder states at n = 49, 121, 363 (every outcome random) and
+    #    measured-once random Clifford states at n = 121, 363 (every outcome
+    #    deterministic); each row checks the kernel against its plain
+    #    version first and carries the launch plan
+    rows = {}
+    for case in msb.k9_cases(dev):
+        row = msb.k9_row(case, 20, int_ops_per_s)
+        branch = "random" if row["random_share"] == 1.0 else "deterministic"
+        if row["random_share"] not in (0.0, 1.0):
+            raise RuntimeError(f"K9 case at n={row['n']} mixes branches")
+        rows[branch, row["n"]] = row
+        plan = row["plan"]
+        log(f"K9 {branch} n={row['n']} B={row['B']} M={row['M']}: wrapper "
+            f"{row['ms']:.4f} ms (host {row['host_ms']:.4f}), a launch in a "
+            f"graph {row['hot_ms']:.4f} hot, {row['cold_ms']:.4f} cold; plain "
+            f"{row['plain_ms']:.3f} ms; bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}); form {plan['form']} "
+            f"({cuda_measure.FORMS[plan['form']]}), {plan['shots_per_block']} "
+            f"shots a block, {plan['threads']} threads, {plan['smem_bytes']} "
+            f"B shared, {plan['registers']} registers, "
+            f"{plan['resident_blocks']} blocks resident")
+    keep = ("ms", "host_ms", "hot_ms", "cold_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "random_share", "int_ops", "plan")
+
+    def entry(branch, n):
+        row = rows[branch, n]
+        return {"shape": f"B={row['B']} n={n} W={row['W']} M={row['M']} "
+                         f"({row['branch']})", **{k: row[k] for k in keep}}
+
     k9 = {"name": "chp_measure", "route": "cuda",
           "source": "qcss_tpu_torch/csrc/chp_measure.cu",
           "replaces": "qcss_tpu/sim/pallas_measure.py:193",
-          "launches": n_k9, "max_abs_err": k9_err, **entry[363],
-          "n121": entry[121]}
+          "launches": n_k9, "max_abs_err": k9_err,
+          **entry("random", 363), "n121": entry("random", 121),
+          "n49": entry("random", 49),
+          "deterministic": {"n121": entry("deterministic", 121),
+                            "n363": entry("deterministic", 363)}}
     return k9, bench_rows, memory
 
 
@@ -561,6 +481,7 @@ def main() -> int:
     from qcss_tpu_torch import _cuda
     from qcss_tpu_torch.benchmarks import (
         gf2_bench,
+        measure_sparse_bench as msb,
         steane_mc,
         stream_bench,
         syndrome_sweep,
@@ -1113,23 +1034,29 @@ def main() -> int:
     k1_plan, k1_need, k1_bound = k1_report(
         f"B={BATCH} V={V1} NC=0", device_uf_cuda, duf, dg, defect_big,
         int_ops_per_s)
-    k2_ms = cuda_ms(lambda: device_sparse_cuda.sparse_decode_cuda(
-        tables_dev, D_MAX, ev48, dets_big), 5)
-    k2_plain_ms = cuda_ms(lambda: dsp._sparse_plain(
-        tables_dev, D_MAX, ev48, dets_big), 2)
-    ok_, ck_ = device_sparse_cuda.sparse_decode_cuda(tables_dev, D_MAX, ev48,
-                                                     dets_big)
-    op_, cp_ = dsp._sparse_plain(tables_dev, D_MAX, ev48, dets_big)
-    k2_err = max(k2_err, max_abs(ok_, op_), max_abs(ck_, cp_))
-    if k2_err:
-        raise RuntimeError(f"sparse kernel disagrees at B={BATCH}")
-    k2_bound = bound(sparse_bytes(dets_big, D_MAX))
+    # K2 (benchmarks/measure_sparse_bench.py): checked against its plain
+    # version, timed through its wrapper and as a launch in a CUDA graph
+    # (hot, and cold over copies 3x the L2), its bound from the bytes and
+    # from the pair tests (event searches, mask builds) a walk of the plain
+    # version counts
+    k2_row = msb.k2_row(tables_dev, dets_big, 20, int_ops_per_s)
     log(f"K1 stencil B={BATCH}: kernel {k1_ms:.4f} ms ({k1_zero_ms:.4f} ms "
         f"on all-zero detectors), plain {k1_plain_ms:.3f} ms, bound "
         f"{k1_bound[0]:.4f} ms ({k1_bound[1]})")
-    log(f"K2 sparse B={BATCH} d_max={D_MAX}: kernel {k2_ms:.4f} ms, plain "
-        f"{k2_plain_ms:.3f} ms (compaction and distance fetch included), "
-        f"bound {k2_bound[0]:.4f} ms ({k2_bound[1]})")
+    k2_plan = k2_row["plan"]
+    log(f"K2 sparse B={BATCH} d_max={D_MAX}: wrapper {k2_row['ms']:.4f} ms "
+        f"(host {k2_row['host_ms']:.4f}), a launch in a graph "
+        f"{k2_row['hot_ms']:.4f} hot, {k2_row['cold_ms']:.4f} cold; plain "
+        f"{k2_row['plain_ms']:.3f} ms (compaction and distance fetch "
+        f"included); bound {k2_row['bound_ms']:.4f} ms ({k2_row['bound_by']}"
+        f"; {k2_row['bytes']} bytes, {k2_row['int_ops']:.4g} integer ops); "
+        f"defects a shot {k2_row['defects_per_shot']}, events "
+        f"{k2_row['events_per_shot']}, mask builds "
+        f"{k2_row['mask_builds_per_shot']}, sweeps "
+        f"{k2_row['sweeps_per_shot']}; {k2_plan['shots_per_block']} shots a "
+        f"block, {k2_plan['smem_bytes']} "
+        f"B shared, {k2_plan['registers']} registers, "
+        f"{k2_plan['resident_blocks']} blocks resident")
 
     # K1 at the streaming window's shape, with chunks
     mid = windows["phenomenological"]._mid
@@ -1367,8 +1294,13 @@ def main() -> int:
          "source": "qcss_tpu_torch/csrc/sparse_growth.cu",
          "replaces": "qcss_tpu/decode/device_sparse.py:395",
          "launches": n_k2, "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
-         "bound_by": k2_bound[1], "library_ms": None},
+         "shape": f"B={BATCH} V={dets_big.shape[1]} d_max={D_MAX} (d={D} "
+                  f"R={ROUNDS} circuit-level detectors)",
+         **{k: k2_row[k] for k in (
+             "ms", "host_ms", "hot_ms", "cold_ms", "plain_ms", "bound_ms",
+             "bound_by", "library_ms", "bytes", "int_ops",
+             "defects_per_shot", "events_per_shot", "sweeps_per_shot",
+             "plan")}},
         {"name": "syndromes_packed", "route": "cuda",
          "source": "qcss_tpu_torch/csrc/gf2_packed.cu",
          "replaces": "qcss_tpu/ops/pallas_gf2.py:51",

@@ -22,7 +22,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 SOURCES = ("uf_stencil_full.cu", "uf_stencil_staged.cu", "sparse_growth.cu",
            "gf2_packed.cu", "chp_measure.cu")
-HEADERS = ("block_reduce.cuh", "uf_stencil_common.cuh")
+HEADERS = ("block_reduce.cuh", "residency.cuh", "uf_stencil_common.cuh")
 BUILD_ROOT = _PKG.parent / "build" / "cuda"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -120,8 +120,11 @@ def load() -> ctypes.CDLL:
             ptr]
         lib.qcss_stencil_round.restype = i32
         lib.qcss_sparse_growth.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr, ptr, ptr]
+            ptr, i64, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr, ptr, ptr,
+            ptr]
         lib.qcss_sparse_growth.restype = i32
+        lib.qcss_sparse_growth_config.argtypes = [i32, ptr]
+        lib.qcss_sparse_growth_config.restype = i32
         lib.qcss_syndromes_packed.argtypes = [
             ptr, ptr, i64, i32, i32, ptr, ptr]
         lib.qcss_syndromes_packed.restype = i32
@@ -137,8 +140,8 @@ def load() -> ctypes.CDLL:
             ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32, ptr, ptr, ptr,
             ptr, ptr]
         lib.qcss_chp_measure.restype = i32
-        lib.qcss_chp_measure_smem.argtypes = [i32, i32, i32]
-        lib.qcss_chp_measure_smem.restype = i64
+        lib.qcss_chp_measure_config.argtypes = [i32, i32, i32, ptr]
+        lib.qcss_chp_measure_config.restype = i32
         _lib = lib
     return _lib
 

@@ -57,13 +57,16 @@
 
 #include <algorithm>
 #include <cstdint>
-#include <mutex>
+
+#include "residency.cuh"
 
 namespace {
 
+using qcss::Instance;
+using qcss::instance;
+using qcss::kMaxSmem;
+
 constexpr int kThreads = 256;
-// the most dynamic shared memory one block may opt in to (227 KB)
-constexpr long long kMaxSmem = 232448;
 // K7 stages its check rows in shared memory up to this size; above it it
 // reads them from device memory (through L1/L2)
 constexpr int kSmemBytes = 48 * 1024;
@@ -504,55 +507,6 @@ inline int blocks_for(long long n) {
   return (int)((n + kThreads - 1) / kThreads);
 }
 
-// A kernel instance and what its persistent launch needs to know of the
-// card: the SM count and the resident blocks an SM takes at the last
-// shared-memory size asked for. Read once per instance (and again when
-// the device or the size changes), so a launch makes no query.
-struct Residency {
-  std::mutex m;
-  int device = -1;
-  int sms = 0;
-  long long smem = -1;
-  int per_sm = 0;
-};
-
-struct Instance {
-  const void* fn;
-  Residency* res;
-};
-
-template <auto K>
-Instance instance() {
-  static Residency r;
-  return {reinterpret_cast<const void*>(K), &r};
-}
-
-// Blocks of instance k the card holds at once with smem bytes a block.
-cudaError_t resident_blocks(Instance k, long long smem, int* blocks) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  Residency& c = *k.res;
-  std::lock_guard<std::mutex> lock(c.m);
-  if (c.device != dev) {
-    err = cudaFuncSetAttribute(
-        k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
-    if (err != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    c.device = dev;
-    c.smem = -1;
-  }
-  if (c.smem != smem) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&c.per_sm, k.fn,
-                                                        kThreads, smem);
-    if (err != cudaSuccess) return err;
-    c.smem = smem;
-  }
-  *blocks = c.sms * c.per_sm;
-  return c.per_sm > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
-}
-
 // How K6 or K8 lays out a launch; shared by the launchers and the config
 // query. words: the instance (W for 16-byte aligned inputs with W <= 4,
 // else 0, the generic one); shots a thread a tile; lanes: the threads of
@@ -630,7 +584,7 @@ Instance k8_instance(int words) {
 cudaError_t launch(Instance k, const Plan& p, long long ntiles, void** args,
                    void* stream) {
   int blocks = 0;
-  cudaError_t err = resident_blocks(k, p.smem, &blocks);
+  cudaError_t err = qcss::resident_blocks(k, kThreads, p.smem, &blocks);
   if (err != cudaSuccess) return err;
   const int grid = (int)std::min<long long>(ntiles, blocks);
   err = cudaLaunchKernel(k.fn, dim3(grid), dim3(kThreads), args,
@@ -658,7 +612,7 @@ extern "C" int qcss_gf2_packed_config(int kernel, int W, int R,
   if (p.lanes < 1) return (int)cudaErrorInvalidValue;
   const Instance k = kernel == 6 ? k6_instance(p.words) : k8_instance(p.words);
   int blocks = 0;
-  cudaError_t err = resident_blocks(k, p.smem, &blocks);
+  cudaError_t err = qcss::resident_blocks(k, kThreads, p.smem, &blocks);
   if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes attr;
   if ((err = cudaFuncGetAttributes(&attr, k.fn)) != cudaSuccess)

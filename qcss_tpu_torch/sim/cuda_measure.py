@@ -4,13 +4,15 @@ counterpart of `qcss_tpu.sim.pallas_measure`.
 
 `measure_many_fused` measures a packed tableau's qubits in order. For a
 tableau on the card it launches K9, which keeps each shot's tableau in
-shared memory across all the measured qubits (or, where a shot's tableau
-is larger than a block's shared memory, works on it in device memory);
-for a tableau on the CPU it runs the plain version, the scan
-`tableau_packed.measure_many`. The collapse bits are drawn as the scan
-draws them (`tableau.collapse_bits`, one [B, M] draw), so given the same
-bits the two are bit-identical. No path gives way from the kernel to the
-scan: what the kernel does not take raises.
+shared memory across all the measured qubits: a warp a shot while a row
+has at most 4 words (n <= 128), a block a shot while the tableau fits in a
+block's 227 KB (n <= 659), and past that a block a shot working in device
+memory (`launch_plan` reports which). For a tableau on the CPU it runs
+the plain version, the scan `tableau_packed.measure_many`. The collapse
+bits are drawn as the scan draws them (`tableau.collapse_bits`, one
+[B, M] draw), so given the same bits the two are bit-identical. No path
+gives way from the kernel to the scan: what the kernel does not take
+raises.
 
 The TPU kernel's ``tile_b`` (B a multiple of the VMEM tile) and its
 [B, W, 2n] transpose have no counterpart: the kernel takes any batch in
@@ -18,6 +20,8 @@ the [B, 2n, W] layout that `PackedTableau` holds.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -37,11 +41,32 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
             f"{device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
 
 
+_PLAN_KEYS = ("form", "shots_per_block", "threads", "smem_bytes",
+              "resident_blocks", "registers")
+
+#: K9's forms, by the number `launch_plan` reports
+FORMS = {1: "a warp a shot", 2: "a block a shot, shared memory",
+         3: "a block a shot, device memory"}
+
+
+def launch_plan(n: int, words: int, form: int = 0) -> dict:
+    """How K9 launches for n qubits at ``words`` words a row: its form (1:
+    a warp a shot, 2: a block a shot with the tableau in shared memory, 3:
+    a block a shot in device memory), shots a block at once, threads a
+    block, shared memory a block, the blocks the card holds at once and
+    registers a thread (`qcss_chp_measure_config`; needs the card).
+    ``form`` asks for one form (0: the one the wrapper launches); a form
+    that cannot run these shapes raises."""
+    out = (ctypes.c_longlong * len(_PLAN_KEYS))()
+    _cuda.check(_cuda.load().qcss_chp_measure_config(n, words, form, out),
+                "qcss_chp_measure_config")
+    return dict(zip(_PLAN_KEYS, (int(v) for v in out)))
+
+
 def in_shared_memory(n: int, words: int) -> bool:
     """Whether K9 holds a shot's tableau (n qubits, ``words`` words a row)
     in shared memory; above the card's limit it works in device memory."""
-    return _cuda.load().qcss_chp_measure_smem(n, words, 1) \
-        <= _cuda.MAX_SHARED_BYTES
+    return launch_plan(n, words)["form"] != 3
 
 
 def measure_many_cuda(t: tp.PackedTableau, qubits,
@@ -72,7 +97,7 @@ def measure_many_cuda(t: tp.PackedTableau, qubits,
     outs = torch.empty((B, M), dtype=torch.uint8, device=dev)
     err = _cuda.load().qcss_chp_measure(
         t.x.data_ptr(), t.z.data_ptr(), t.r.data_ptr(), q_dev.data_ptr(),
-        rand_bits.data_ptr(), B, n, W, M, int(in_shared_memory(n, W)),
+        rand_bits.data_ptr(), B, n, W, M, 0,
         x_out.data_ptr(), z_out.data_ptr(), r_out.data_ptr(),
         outs.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _cuda.check(err, "qcss_chp_measure")

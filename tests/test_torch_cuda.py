@@ -690,3 +690,218 @@ def test_packed_kernels_take_an_empty_batch(cuda):
     lut = torch.ones((8, 2), dtype=torch.int32, device=cuda)
     assert cuda_gf2.syndromes_packed_cuda(e, h).shape == (0, 3)
     assert cuda_gf2.decode_residual_packed_cuda(e, h, lut).shape == (0, 2)
+
+
+# -- K9's forms: thresholds, batches, branches, views ----------------------
+
+def _measure_equal(t, qs, bits, form=0):
+    """K9 (the wrapper, or a form asked for through the C entry point)
+    against its plain version, bit for bit."""
+    from qcss_tpu_torch.sim import cuda_measure
+    from qcss_tpu_torch.sim import tableau_packed as tp
+
+    if form:
+        q = torch.tensor(qs, dtype=torch.int32, device=t.x.device)
+        B, _, W = t.x.shape
+        xo, zo, ro = torch.empty_like(t.x), torch.empty_like(t.z), \
+            torch.empty_like(t.r)
+        ok = torch.empty((B, len(qs)), dtype=torch.uint8, device=t.x.device)
+        _cuda.check(_cuda.load().qcss_chp_measure(
+            t.x.data_ptr(), t.z.data_ptr(), t.r.data_ptr(), q.data_ptr(),
+            bits.data_ptr(), B, t.n, W, len(qs), form, xo.data_ptr(),
+            zo.data_ptr(), ro.data_ptr(), ok.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "qcss_chp_measure")
+        tk = tp.PackedTableau(xo, zo, ro, t.n)
+    else:
+        before = cuda_measure.launches
+        tk, ok = cuda_measure.measure_many_cuda(t, qs, bits)
+        assert cuda_measure.launches == before + 1
+    tpl, op = tp.measure_many(t, qs, rand_bits=bits)
+    torch.cuda.synchronize()
+    assert torch.equal(ok, op)
+    assert torch.equal(tk.x, tpl.x) and torch.equal(tk.z, tpl.z)
+    assert torch.equal(tk.r, tpl.r)
+
+
+@pytest.mark.parametrize("n,B", [(128, 1), (129, 5), (659, 3), (660, 2),
+                                 (49, 4097), (121, 4099)])
+def test_measure_kernel_forms(cuda, n, B):
+    """One below and one above each form's threshold (a warp a shot to
+    W = 4, a block in shared memory to n = 659), B = 1 and batches that
+    are not a multiple of the shots a block; qubit 31 first, a second pass
+    over the qubits for the deterministic branch; the plan against the CPU
+    model's."""
+    from test_torch_measure_schedule import _plan
+
+    from qcss_tpu_torch.sim import cuda_measure
+    from qcss_tpu_torch.sim import tableau as tb
+
+    t, rng = _random_packed_state(n, B, n + 1, cuda)
+    first = [int(v) for v in rng.choice(n, min(n, 12), replace=False)]
+    qs = [31] + first + [31] + first
+    bits = tb.collapse_bits(torch.Generator(device=cuda).manual_seed(n), B,
+                            len(qs))
+    plan = cuda_measure.launch_plan(n, t.words)
+    assert (plan["form"], plan["shots_per_block"], plan["threads"],
+            plan["smem_bytes"]) == _plan(n, t.words)
+    assert plan["form"] == (1 if n <= 128 else 2 if n <= 659 else 3)
+    _measure_equal(t, qs, bits)
+
+
+@pytest.mark.parametrize("n", [49, 121, 363])
+def test_measure_kernel_all_random_and_all_deterministic(cuda, n):
+    """The ladder state (every outcome random), then the same qubits again
+    (every outcome deterministic), through the wrapper and through each
+    form that takes the shape."""
+    from qcss_tpu_torch.benchmarks.measure_sparse_bench import k9_walk
+    from qcss_tpu_torch.benchmarks.tableau_bench import (
+        ladder_circuit,
+        measured_qubits,
+    )
+    from qcss_tpu_torch.sim import cuda_measure
+    from qcss_tpu_torch.sim import tableau as tb
+    from qcss_tpu_torch.sim import tableau_packed as tp
+
+    B = 1000
+    t = tp.run_circuit(tp.zero_state(B, n, cuda), ladder_circuit(n))
+    qs = [int(v) for v in measured_qubits(n)]
+    bits = tb.collapse_bits(torch.Generator(device=cuda).manual_seed(n), B,
+                            len(qs))
+    t2, _, rand, _ = k9_walk(t, qs, bits)
+    assert bool(rand.all())
+    assert not bool(k9_walk(t2, qs, bits)[2].any())
+    _measure_equal(t, qs, bits)
+    _measure_equal(t2, qs, bits)
+    for form in (1, 2, 3):
+        try:
+            cuda_measure.launch_plan(n, t.words, form)
+        except RuntimeError:
+            assert form == 1 and n > 128
+            continue
+        _measure_equal(t, qs, bits, form)
+        _measure_equal(t2, qs, bits, form)
+
+
+@pytest.mark.parametrize("n", [7, 49, 121, 363])
+def test_measure_kernel_misaligned_tableau(cuda, n):
+    """A tableau whose words start 4 bytes past a 16-byte boundary: the
+    copies take 4-byte pieces."""
+    from qcss_tpu_torch.sim import tableau as tb
+    from qcss_tpu_torch.sim import tableau_packed as tp
+
+    t, rng = _random_packed_state(n, 33, n + 2, cuda)
+
+    def shifted(a):
+        buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
+        v = buf[1:].view(a.shape)
+        v.copy_(a)
+        return v
+
+    tv = tp.PackedTableau(shifted(t.x), shifted(t.z), t.r, n)
+    assert tv.x.data_ptr() % 16 != 0 and tv.x.is_contiguous()
+    qs = [int(v) for v in rng.choice(n, min(n, 10), replace=False)]
+    qs = qs + qs
+    bits = tb.collapse_bits(torch.Generator(device=cuda).manual_seed(2), 33,
+                            len(qs))
+    _measure_equal(tv, qs, bits)
+
+
+def test_measure_kernel_refuses_forms_it_cannot_run(cuda):
+    from qcss_tpu_torch.sim import cuda_measure
+
+    with pytest.raises(RuntimeError):
+        cuda_measure.launch_plan(363, 12, 1)  # a warp holds W <= 4
+    with pytest.raises(RuntimeError):
+        cuda_measure.launch_plan(720, 23, 2)  # past 227 KB
+    with pytest.raises(RuntimeError):
+        cuda_measure.launch_plan(1, 1, 2)  # n < 2W
+    assert cuda_measure.launch_plan(9, 5)["form"] == 3
+
+
+# -- K2: d_max, overflow, empty rows, the event cap, views, wide distances --
+
+def _sparse_equal(tables, d_max, ev, dets):
+    from qcss_tpu_torch.decode import device_sparse_cuda
+
+    before = device_sparse_cuda.launches
+    obs_k, conv_k = device_sparse_cuda.sparse_decode_cuda(tables, d_max, ev,
+                                                          dets)
+    assert device_sparse_cuda.launches == before + 1
+    obs_p, conv_p = tds._sparse_plain(tables, d_max, ev, dets.contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(obs_k, obs_p)
+    assert torch.equal(conv_k, conv_p)
+    return conv_p
+
+
+@pytest.mark.parametrize("d_max", [1, 31, 32, 33, 48, 64])
+def test_sparse_kernel_d_max(cuda, d_max):
+    """Shots from 0 to ~45 defects (two slots a lane past 32), all-zero
+    rows, rows with exactly d_max and d_max + 1 defects."""
+    g = _graph("dem", 5)
+    tables = tds._tables_to(tds.build_sparse_tables(g), cuda)
+    V = g.num_nodes
+    rng = np.random.default_rng(d_max)
+    p = rng.choice([0.0, 0.02, 0.1, 0.3, 0.6], size=(3000, 1))
+    dets = (rng.random((3000, V)) < p).astype(np.uint8)
+    dets[:50] = 0
+    for b, k in enumerate([d_max, d_max + 1] * 20):
+        dets[50 + b] = 0
+        dets[50 + b, rng.choice(V, min(k, V), replace=False)] = 1
+    dets = torch.as_tensor(dets, device=cuda)
+    conv = _sparse_equal(tables, d_max, d_max * (d_max + 1) // 2 + 4, dets)
+    assert conv[:50].all()
+    assert not conv[51:90:2].any()  # d_max + 1 defects: overflow
+    if d_max >= 33:
+        assert int(dets.sum(1).max()) > 32
+
+
+@pytest.mark.parametrize("max_events", [1, 2])
+def test_sparse_kernel_event_cap(cuda, max_events):
+    g = _graph("dem", 5)
+    tables = tds._tables_to(tds.build_sparse_tables(g), cuda)
+    dets = _dets(g, 2000, 0.08, seed=max_events, device=cuda)
+    conv = _sparse_equal(tables, 48, max_events, dets)
+    assert not conv.all()
+
+
+@pytest.mark.parametrize("offset", [1, 3, 8, 15])
+def test_sparse_kernel_detector_views(cuda, offset):
+    """Rows starting at any byte (a contiguous view off a 16-byte
+    boundary) and rows at a stride wider than V: read in place."""
+    g = _graph("dem", 5)
+    tables = tds._tables_to(tds.build_sparse_tables(g), cuda)
+    V = g.num_nodes
+    rng = np.random.default_rng(offset)
+    buf = torch.as_tensor((rng.random(1001 * (V + offset)) < 0.06).astype(
+        np.uint8), device=cuda)
+    dets = buf[offset:offset + 1000 * V].view(1000, V)
+    assert dets.data_ptr() % 16 != 0
+    _sparse_equal(tables, 48, 1180, dets)
+    wide = buf[:999 * (V + offset)].view(999, V + offset)[:, offset:]
+    assert wide.stride(0) == V + offset
+    _sparse_equal(tables, 48, 1180, wide)
+
+
+@pytest.mark.parametrize("scale", [1, 1 << 12])
+def test_sparse_kernel_distance_scales(cuda, scale):
+    """The graph's distances as they are and scaled past 2^15, each
+    against the plain version on the same tables; the plan against the
+    CPU model's."""
+    from test_torch_sparse_schedule import _plan
+
+    from qcss_tpu_torch.decode import device_sparse_cuda
+
+    g = _graph("dem", 5)
+    t = tds.build_sparse_tables(g)
+    fin = t.dist < tds.UNREACH
+    dist = np.where(fin, t.dist.astype(np.int64) * scale, tds.UNREACH)
+    bdist = np.where(t.bdist < tds.UNREACH,
+                     t.bdist.astype(np.int64) * scale, tds.UNREACH)
+    tables = tds._tables_to(tds.sparse_tables_from_numpy(
+        dist, t.phi, bdist, t.bside, t.num_nodes), cuda)
+    plan = device_sparse_cuda.launch_plan(48)
+    assert (plan["shots_per_block"], plan["threads"],
+            plan["smem_bytes"]) == _plan(48)
+    dets = _dets(g, 3000, 0.1, seed=scale % 97, device=cuda)
+    _sparse_equal(tables, 48, 1180, dets)
