@@ -11,11 +11,13 @@ circuit-level surface-code memory with sampling and decoding fused, at
 distance 11 over 11 rounds; the code-capacity Monte Carlo with the packed
 GF(2) kernels; the unbounded-round streaming memory (sliding windows
 on the stencil kernel, carry lanes in spilled chunks) with the staged
-routes of the same decode; and the stabilizer tableaus with the fused
-measurement kernel K9:
+routes of the same decode; the stabilizer tableaus with the fused
+measurement kernel K9; and the host decoders (`qcss_tpu_torch/native`,
+built with g++) on the card's samples, with the parallel-window decoder on
+the stencil kernel:
 
 1. prints the toolchain and the card;
-2. builds the kernels;
+2. builds the kernels, and the host library with g++ meanwhile;
 3. holds the stencil union-find kernel (K1) against its plain PyTorch
    version on 1024 sampled detector rows (packed labels, activity, obs
    and convergence must be identical), and against the plain version on
@@ -66,6 +68,20 @@ measurement kernel K9:
    and, on 64 shots, the CPU engine; K9 must have launched. Then `z_memory_experiment` and
    `x_memory_experiment` (Steane, R=3, B=1024, seed 7) with
    engine='tableau' must equal engine='frames' bit for bit;
+   main path 7, the host decoders and the parallel window: the native
+   library (built with g++ beside the kernels) must have loaded;
+   `memory_experiment` at d=11, R=11, engine='frames', B=16384 with
+   decoder='dem' and 'device-dem' at one seed (their failure counts
+   within the reference's bound, 8 at B=8192, scaled to the batch),
+   'uf', and 'dem-mwpm' at B=4096 (shots/s each); `DeviceUFDecoder`
+   against `UFDecoder` on the d=11 DEM detectors (agreement above the
+   reference's 0.93; built without caps, no shot may go to the host); and
+   `benchmarks/pw_bench.py` at d = 5, 7, 11 (B=4096, R=96, p=q=0.004,
+   core d, buf int(1.5 d)): `ParallelWindowDecoder.decode_stream` on
+   the card equal to the CPU's plain path on 256 shots, its shots/s and
+   failure rate against `DeviceStreamingDecoder`'s; K1 must have launched
+   on the parallel window's chunk graphs at every distance, counted
+   around the parallel window's own calls;
 9. times each kernel, its plain version and (K6, K7) the dense matmul
    form at the main paths' shapes, beside each kernel's bound, checking
    each timed output against the plain version's; K9 and K2 through
@@ -77,8 +93,9 @@ measurement kernel K9:
    d=11, B=16384, d_max=48 with its plan, its defects, events, mask
    builds and sweeps a shot, and a bound from its bytes and the pair tests
    (event searches, mask builds) a walk of its plain version counts; prints K1's launch plan (shots a
-   block, shared memory, registers) and the work its data need at both
-   of its shapes (shots running, live vertices and sweeps per round,
+   block, shared memory, registers) and the work its data need at its
+   three shapes, the parallel window's d=11 interior window the third
+   (shots running, live vertices and sweeps per round,
    counted with the plain version on the card; the bound counts those
    candidate reads); times K7 alone and through its wrapper at every
    sweep distance; times K6 and K8 through their wrappers and, as device
@@ -102,6 +119,7 @@ import json
 import math
 import subprocess
 import sys
+import threading
 import time
 
 D = 11
@@ -122,6 +140,13 @@ WINDOW, COMMIT = 8, 4
 TAB_BATCH = 4096
 TAB_CHECK_BATCH = 1024
 TAB_QUBITS = (49, 121, 363)
+MWPM_BATCH = 4096
+PW_DISTANCES = (5, 7, 11)
+PW_BATCH = 4096
+PW_ROUNDS = 96
+PW_P = 0.004
+PW_CHECK = 256
+PW_REPS = 3
 Z999 = 3.2905
 
 
@@ -461,6 +486,128 @@ def tableau_slice(dev, int_ops_per_s):
     return k9, bench_rows, memory
 
 
+def path7(dev, code, noise, graph, dets_big):
+    """Main path 7: (a) the native library, (b) `memory_experiment` at d=11
+    with the host decoders ('dem' against 'device-dem' at one seed, within
+    the reference's bound scaled to the batch; 'uf'; 'dem-mwpm' at
+    MWPM_BATCH), (c) `DeviceUFDecoder` against `UFDecoder` on the d=11 DEM
+    detectors, (d) the pw_bench configuration. Returns (host decoder rows,
+    parallel-window rows, K1 launches of the path, the (c) agreement)."""
+    import numpy as np
+    import torch
+
+    from qcss_tpu_torch import native
+    from qcss_tpu_torch.benchmarks import pw_bench
+    from qcss_tpu_torch.decode import device_uf_cuda
+    from qcss_tpu_torch.decode.device_uf import DeviceUFDecoder
+    from qcss_tpu_torch.decode.uf import UFDecoder
+    from qcss_tpu_torch.experiments.memory import memory_experiment
+
+    device_uf_cuda.launches = device_uf_cuda.chunk_launches = 0
+    # (a)
+    if not native.available():
+        raise RuntimeError(f"the native library did not build: "
+                           f"{native.load_error}")
+    built = ("already built" if native.build_seconds is None else
+             f"g++ build {native.build_seconds:.2f} s")
+    log(f"path 7 (a): native library {native.library_path()} loaded "
+        f"({built})")
+    # (b)
+    host = {}
+    for decoder, batch in (("dem", BATCH), ("device-dem", BATCH),
+                           ("uf", BATCH), ("dem-mwpm", MWPM_BATCH)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = memory_experiment(code, rounds=ROUNDS, noise=noise,
+                                decoder=decoder, engine="frames",
+                                batch=batch, seed=17, device="cuda")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        host[decoder] = {"batch": batch,
+                         "failures": round(out["logical_fail"] * batch),
+                         "logical_fail": out["logical_fail"],
+                         "residual_syndrome": out["residual_syndrome"],
+                         "wall_s": dt, "shots_per_sec": batch / dt}
+        log(f"path 7 (b): memory_experiment d={D} R={ROUNDS} frames "
+            f"decoder={decoder} B={batch}: {batch / dt:.1f} shots/s "
+            f"({dt:.3f} s, graph build included), "
+            f"{host[decoder]['failures']} failures, residual "
+            f"{out['residual_syndrome']}")
+    # the reference's bound (tests/test_device_uf.py): fewer than 8
+    # failures apart at B = 8192, here scaled to the batch
+    allowed = 8 * BATCH / 8192
+    apart = abs(host["dem"]["failures"] - host["device-dem"]["failures"])
+    log(f"path 7 (b): dem against device-dem at one seed: {apart} failures "
+        f"apart (allowed < {allowed:g})")
+    if apart >= allowed:
+        raise RuntimeError("dem and device-dem disagree past the "
+                           "reference's bound")
+    for row in host.values():
+        if not 0.0 <= row["logical_fail"] < 0.05:
+            raise RuntimeError(f"implausible failure rate {row}")
+    # (c)
+    before = device_uf_cuda.launches
+    ddec = DeviceUFDecoder(graph, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, obs_dev = ddec.decode_batch(dets_big)
+    dt_dev = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, obs_host = UFDecoder(graph).decode_batch(dets_big.cpu().numpy(),
+                                                want_corrections=False)
+    dt_host = time.perf_counter() - t0
+    agree = float(np.mean((obs_dev & 1) == (obs_host & 1)))
+    log(f"path 7 (c): DeviceUFDecoder against UFDecoder on {len(obs_dev)} "
+        f"d={D} DEM detector rows: agreement {agree:.6f} (the reference's "
+        f"bound > 0.93), {ddec.fallback_shots} shots sent to the host; "
+        f"device {len(obs_dev) / dt_dev:.1f} shots/s, host "
+        f"{len(obs_dev) / dt_host:.1f} shots/s")
+    if agree <= 0.93:
+        raise RuntimeError("DeviceUFDecoder disagrees with UFDecoder past "
+                           "the reference's bound")
+    # built without caps, every shot converges in K1: a shot sent to the
+    # host means K1 failed it
+    if ddec.fallback_shots:
+        raise RuntimeError(f"DeviceUFDecoder without caps sent "
+                           f"{ddec.fallback_shots} shots to the host")
+    if device_uf_cuda.launches == before:
+        raise RuntimeError("DeviceUFDecoder did not launch K1")
+    # (d)
+    rows = []
+    for d in PW_DISTANCES:
+        row = pw_bench.run(d, PW_ROUNDS, PW_BATCH, PW_P, PW_REPS, PW_CHECK)
+        rows.append(row)
+        log(f"path 7 (d): pw_bench d={d} R={PW_ROUNDS} B={PW_BATCH} "
+            f"p=q={PW_P} core={row['core']} buf={row['buf']}: parallel "
+            f"window {row['pw_shots_per_sec']:.1f} shots/s (fail "
+            f"{row['pw_fail']:.6f}), forward streaming "
+            f"{row['fw_shots_per_sec']:.1f} shots/s (fail "
+            f"{row['fw_fail']:.6f}), speedup {row['speedup']:.3f}, "
+            f"agreement {row['pw_fw_agree']:.6f}; K1 launches a "
+            f"decode_stream call {row['pw_launches']:g} "
+            f"({row['pw_chunk_launches']:g} on chunk graphs); the CPU's "
+            f"plain path on {PW_CHECK} shots equal: {row['check_equal']}")
+        if not row["check_equal"]:
+            raise RuntimeError(f"the parallel window on the card disagrees "
+                               f"with the CPU at d={d}")
+        # counted around the parallel window's own calls only (the
+        # forward decoder's windows launch K1 on chunk graphs too)
+        if row["pw_chunk_launches_total"] <= 0:
+            raise RuntimeError(f"K1 was not launched on the parallel "
+                               f"window's chunk graphs at d={d}")
+        if not (row["pw_fail"] < 0.05 and row["fw_fail"] < 0.05):
+            raise RuntimeError(f"implausible failure rates {row}")
+    launches = {"all": device_uf_cuda.launches,
+                "chunks": device_uf_cuda.chunk_launches,
+                "pw": sum(r["pw_launches_total"] for r in rows),
+                "pw_chunks": sum(r["pw_chunk_launches_total"]
+                                 for r in rows)}
+    log(f"main path 7 launches: stencil kernel {launches['all']}, "
+        f"{launches['chunks']} of them with chunks; the parallel window's "
+        f"own {launches['pw']}, {launches['pw_chunks']} with chunks")
+    return host, rows, launches, agree
+
+
 def main() -> int:
     try:
         import torch
@@ -478,10 +625,11 @@ def main() -> int:
               f"script ({exc})", file=sys.stderr)
         return 2
 
-    from qcss_tpu_torch import _cuda
+    from qcss_tpu_torch import _cuda, native
     from qcss_tpu_torch.benchmarks import (
         gf2_bench,
         measure_sparse_bench as msb,
+        pw_bench,
         steane_mc,
         stream_bench,
         syndrome_sweep,
@@ -512,6 +660,7 @@ def main() -> int:
         sample_phenomenological_stream,
     )
     from qcss_tpu_torch.decode.montecarlo import logical_error_rate
+    from qcss_tpu_torch.decode.parallel_window import ParallelWindowDecoder
     from qcss_tpu_torch.experiments.memory import memory_experiment
     from qcss_tpu_torch.ops import cuda_gf2, gf2, gf2_torch
     from qcss_tpu_torch.sim.noise import NoiseModel
@@ -537,9 +686,12 @@ def main() -> int:
     log(f"integer bound rate: SMs x 64 lanes x the top SM clock = "
         f"{int_ops_per_s:.4g} ops/s")
 
-    # -- 2. build
+    # -- 2. build: the host library (g++) beside the kernels (nvcc)
     t0 = time.perf_counter()
+    native_build = threading.Thread(target=native.available)
+    native_build.start()
     _cuda.load()
+    native_build.join()
     log(f"built kernels in {time.perf_counter() - t0:.1f} s: "
         f"{_cuda.library_path()}")
     if _cuda.build_log:
@@ -1014,6 +1166,12 @@ def main() -> int:
     # -- 8d. main path 6: the stabilizer tableaus and K9
     k9_entry, tab_rows, tab_memory = tableau_slice(dev, int_ops_per_s)
 
+    # -- 8e. main path 7: the host decoders on the card's samples, the
+    #    device union-find with its host fallback, and the parallel window
+    #    (K1 on its chunk graphs), counted
+    host, pw_rows, pw_launches, uf_agree = path7(
+        dev, code, noise, graph, dets_big)
+
     # -- 9. kernel and plain-version times at the main paths' shapes
     defect_big = duf.stencil_defect(dg, dets_big)
     k1_ms = cuda_ms(lambda: device_uf_cuda.stencil_full(dg, defect_big), 20)
@@ -1087,6 +1245,37 @@ def main() -> int:
         f"{k1w_ms:.4f} ms ({k1w_zero_ms:.4f} ms on all-zero detectors), "
         f"plain {k1w_plain_ms:.3f} ms, bound "
         f"{k1w_bound[0]:.4f} ms ({k1w_bound[1]})")
+    # K1 at the parallel window's d=11 interior shape (core 11, buf 16: 43
+    # slices, two 30-bit carry lanes a side, spilled), on the rows of the
+    # interior call of path 7 (d)'s d=11 stream (the same generator seed)
+    pwd = ParallelWindowDecoder(raw, lz, core=D, buf=int(1.5 * D),
+                                device=dev)
+    pmid = pwd._mid
+    pdets, _ = sample_phenomenological_stream(
+        torch.Generator(device=dev).manual_seed(D), PW_P, PW_P, PW_BATCH,
+        PW_ROUNDS, raw, lz)
+    stride = pwd.core + pwd.buf
+    n_mid = (PW_ROUNDS + 1 + pwd.buf) // stride - 2
+    pidx = torch.arange(1, n_mid + 1, device=dev)[:, None] * stride \
+        - pwd.buf + torch.arange(pwd.core + 2 * pwd.buf, device=dev)[None, :]
+    pdef = duf.stencil_defect(pmid, pdets[:, pidx].reshape(
+        PW_BATCH * n_mid, -1).contiguous())
+    k1p_ms = cuda_ms(lambda: device_uf_cuda.stencil_full(pmid, pdef), 5)
+    k1p_plain_ms = cuda_ms(lambda: duf._stencil_plain(pmid, pdef), 1)
+    out_k = device_uf_cuda.stencil_full(pmid, pdef)
+    out_p = duf._stencil_plain(pmid, pdef)
+    k1p_err = max([max_abs(out_k[0], out_p[0]), max_abs(out_k[1], out_p[1])]
+                  + [max_abs(a, b) for a, b in zip(out_k[2], out_p[2])])
+    if k1p_err:
+        raise RuntimeError("stencil kernel disagrees at the parallel "
+                           "window's interior shape")
+    Vp, NCp = pdef.shape[1], len(pmid.stencil.chunks)
+    k1p_label = f"B={pdef.shape[0]} V={Vp} NC={NCp}"
+    k1p_plan, k1p_need, k1p_bound = k1_report(
+        k1p_label, device_uf_cuda, duf, pmid, pdef, int_ops_per_s)
+    log(f"K1 stencil at the parallel window's d={D} interior shape "
+        f"{k1p_label}: kernel {k1p_ms:.4f} ms, plain {k1p_plain_ms:.3f} ms, "
+        f"bound {k1p_bound[0]:.4f} ms ({k1p_bound[1]})")
     # an estimate from two runs, not a reading of one: K1's time here, on
     # rows sampled for this step, times the timed call's chunk launches,
     # over that call's wall time (`stream_bench --profile` reads the share
@@ -1256,6 +1445,9 @@ def main() -> int:
                       "staged_decode_ms": staged_ms,
                       "tableau_bench": tab_rows,
                       "tableau_memory": tab_memory,
+                      "host_decoders": host,
+                      "device_uf_agreement": uf_agree,
+                      "parallel_window": pw_rows,
                       "card": smi}), flush=True)
     lib_note = ("gf2_torch.syndromes_dense: one float32 torch.matmul with "
                 "casts, on the unpacked [B, n] bits (another layout)")
@@ -1263,7 +1455,7 @@ def main() -> int:
         {"name": "uf_stencil_full", "route": "cuda",
          "source": "qcss_tpu_torch/csrc/uf_stencil_full.cu",
          "replaces": "qcss_tpu/decode/device_uf_pallas.py:367",
-         "launches": n_k1, "max_abs_err": k1_err,
+         "launches": n_k1, "max_abs_err": max(k1_err, k1c_err, k1p_err),
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None,
          "shape": f"B={BATCH} V={V1} NC=0 (fused memory)",
@@ -1274,7 +1466,19 @@ def main() -> int:
                     "ms": k1w_ms, "plain_ms": k1w_plain_ms,
                     "bound_ms": k1w_bound[0], "bound_by": k1w_bound[1],
                     "library_ms": None, "plan": k1w_plan,
-                    "work": k1w_need}},
+                    "work": k1w_need},
+         "parallel_window": {
+             "shape": f"{k1p_label} (parallel window, d={D} interior)",
+             "launches": pw_launches["pw"],
+             "chunk_launches": pw_launches["pw_chunks"],
+             "launches_by_d": {str(r["d"]): {
+                 "launches": r["pw_launches_total"],
+                 "chunk_launches": r["pw_chunk_launches_total"],
+                 "per_decode_stream": r["pw_launches"]} for r in pw_rows},
+             "max_abs_err": k1p_err, "ms": k1p_ms,
+             "plain_ms": k1p_plain_ms, "bound_ms": k1p_bound[0],
+             "bound_by": k1p_bound[1], "library_ms": None,
+             "plan": k1p_plan, "work": k1p_need}},
         {"name": "uf_stencil_prop", "route": "cuda",
          "source": "qcss_tpu_torch/csrc/uf_stencil_staged.cu",
          "replaces": "qcss_tpu/decode/device_uf_pallas.py:74",

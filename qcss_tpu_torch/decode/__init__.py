@@ -1,9 +1,12 @@
 """Decoders of the port: syndrome-table decoding (`lut`), the code-capacity
 Monte Carlo (`montecarlo`, `multiround`, `sweep`), the spacetime LUT
-(`spacetime`), the circuit-level DEM (`dem`), the dense stencil decoder
-(`device_uf`, its staged routes in `device_uf_staged`), the defect-granular
-sparse decoder (`device_sparse`) and sliding-window streaming decoding on
-the device (`streaming`, `device_streaming`)."""
+(`spacetime`), the circuit-level DEM (`dem`), the host decoders
+(union-find `uf`, exact matching `mwpm` over `blossom`, with `calibrate`),
+the dense stencil decoder (`device_uf`, its staged routes in
+`device_uf_staged`), the defect-granular sparse decoder (`device_sparse`),
+sliding-window streaming decoding on the host and the device
+(`streaming`, `device_streaming`) and parallel-window decoding
+(`parallel_window`)."""
 
 from qcss_tpu_torch.decode.lut import (
     correct_errors,
@@ -28,7 +31,7 @@ from qcss_tpu_torch.decode.device_streaming import (
     stream_memory_rate,
     stream_memory_rate_dem,
 )
-from qcss_tpu_torch.decode.device_uf import make_obs_decoder
+from qcss_tpu_torch.decode.device_uf import DeviceUFDecoder, make_obs_decoder
 from qcss_tpu_torch.decode.device_uf_staged import (
     decode_stencil_fused,
     decode_stencil_staged,
@@ -44,15 +47,28 @@ from qcss_tpu_torch.decode.streaming import (
 )
 from qcss_tpu_torch.decode.uf import (
     MatchingGraph,
+    UFDecoder,
     graph_from_checks,
     spacetime_graph,
+    uf_logical_error_rate,
+    uf_phenomenological_error_rate,
+)
+from qcss_tpu_torch.decode.mwpm import MWPMDecoder, MWPMOracle
+from qcss_tpu_torch.decode.parallel_window import (
+    ParallelWindowDecoder,
+    parallel_window_memory_rate,
 )
 from qcss_tpu_torch.decode import classical
 
 __all__ = [
     "DeviceStreamingDecoder",
+    "DeviceUFDecoder",
+    "MWPMDecoder",
+    "MWPMOracle",
     "MatchingGraph",
+    "ParallelWindowDecoder",
     "StreamingDecoder",
+    "UFDecoder",
     "circuit_level_graph",
     "classical",
     "correct_errors",
@@ -71,6 +87,7 @@ __all__ = [
     "mc_decode_rounds",
     "mc_decode_step",
     "multiround_error_rate",
+    "parallel_window_memory_rate",
     "sample_depolarizing",
     "sample_phenomenological_stream",
     "spacetime_check_matrix",
@@ -78,4 +95,6 @@ __all__ = [
     "spacetime_graph",
     "stream_memory_rate",
     "stream_memory_rate_dem",
+    "uf_logical_error_rate",
+    "uf_phenomenological_error_rate",
 ]

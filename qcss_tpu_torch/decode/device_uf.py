@@ -1098,3 +1098,81 @@ def make_obs_decoder(graph: MatchingGraph,
     dg = build_device_graph(graph, max_growth_rounds,
                             prop_cap=prop_cap, act_cap=act_cap)
     return partial(decode_obs, dg.to(device))
+
+
+class DeviceUFDecoder:
+    """Drop-in observable-only counterpart of `uf.UFDecoder` running on
+    ``device`` (the card by default). `decode_batch` keeps the
+    (corrections, obs) return contract with corrections=None — the device
+    decoder computes logical flips without materializing corrections; use
+    the host decoder when per-qubit corrections are required.
+
+    Optional per-round fixpoint caps (`prop_cap`/`act_cap`) bound the
+    batch to typical-case propagation depth; truncated shots are
+    re-decoded by the host union-find (`host_fallback=True`), and only
+    their detectors cross to the host. `fallback_shots` counts them over
+    the instance's life. The caps default OFF, and then a stencil graph
+    decodes in the stencil kernel on the card; the fallback still
+    protects the `max_growth_rounds` edge uncapped."""
+
+    def __init__(self, graph: MatchingGraph,
+                 max_growth_rounds: int | None = None,
+                 prop_cap: int | None = None,
+                 act_cap: int | None = None,
+                 host_fallback: bool = True,
+                 device="cuda"):
+        self.graph = graph
+        self.host_fallback = host_fallback
+        self.device = resolve_device(device)
+        self.fallback_shots = 0
+        self._host = None
+        self._dg = build_device_graph(
+            graph, max_growth_rounds, prop_cap=prop_cap,
+            act_cap=act_cap).to(self.device)
+
+    def decode_batch(self, syndromes, want_corrections: bool = False,
+                     shot_weights=None):
+        """``syndromes`` [B, num_nodes] 0/1 (numpy, or a tensor on any
+        device). ``shot_weights`` ([B, E] int, values in [1, 250])
+        overrides the static growth saturations per shot — same contract
+        as `uf.UFDecoder.decode_batch`; the host fallback re-decodes
+        truncated shots with the same weights. Returns (None, obs [B]
+        uint32)."""
+        if want_corrections:
+            raise ValueError(
+                "DeviceUFDecoder computes observable flips only; use the "
+                "host UFDecoder for per-qubit corrections")
+        dets = (syndromes if isinstance(syndromes, torch.Tensor)
+                else torch.as_tensor(np.asarray(syndromes)))
+        if dets.ndim != 2 or dets.shape[1] != self.graph.num_nodes:
+            raise ValueError(
+                f"syndromes must be [B, {self.graph.num_nodes}], "
+                f"got {tuple(dets.shape)}")
+        dets = dets.to(self.device)
+        weights = None
+        if shot_weights is not None:
+            shot_weights = np.asarray(shot_weights)
+            if shot_weights.shape != (dets.shape[0], self.graph.num_edges):
+                raise ValueError("shot_weights must be [B, num_edges]")
+            weights = torch.as_tensor(shot_weights.astype(np.int32),
+                                      device=self.device)
+        obs, converged = decode_obs(self._dg, dets, weights)
+        obs = obs.cpu().numpy().astype(np.uint32)
+        bad = np.nonzero(~converged.cpu().numpy())[0]
+        if bad.size:
+            if not self.host_fallback:
+                raise RuntimeError(
+                    "iteration cap hit before convergence "
+                    "(host_fallback disabled)")
+            from qcss_tpu_torch.decode.uf import UFDecoder
+
+            if self._host is None:
+                self._host = UFDecoder(self.graph)
+            idx = torch.as_tensor(bad, device=self.device)
+            _, obs_h = self._host.decode_batch(
+                dets[idx].cpu().numpy(), want_corrections=False,
+                shot_weights=None if shot_weights is None else
+                np.clip(shot_weights[bad], 1, 250).astype(np.uint8))
+            obs[bad] = obs_h
+            self.fallback_shots += int(bad.size)
+        return None, obs

@@ -13,11 +13,11 @@ The window graphs set ``edge_qubit = arange(E)`` and ``n_qubits = E`` (a
 host decoder's per-"qubit" correction output is then the selected-edge
 indicator vector); the device decoder reads only edges, weights and labels.
 
-Ported here: the window matching graph (`_window_graph`, numpy) and the
-long-horizon phenomenological sampler. The device decoder over these
-windows is `device_streaming.DeviceStreamingDecoder`. The host
-`StreamingDecoder` decodes each window with the host union-find
-(`UFDecoder`), which is not ported yet, and raises.
+Here: the window matching graph (`_window_graph`, numpy), the
+long-horizon phenomenological sampler, and `StreamingDecoder`, which
+decodes each window on the host with the union-find decoder (`UFDecoder`,
+the JAX package's text). The device decoder over the same windows is
+`device_streaming.DeviceStreamingDecoder`.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ import torch
 
 from qcss_tpu_torch.decode.uf import (
     MatchingGraph,
+    UFDecoder,
     graph_from_checks,
     weights_from_probs,
 )
@@ -123,14 +124,82 @@ def sample_phenomenological_stream(generator: torch.Generator, p, q,
 
 
 class StreamingDecoder:
-    """Forward sliding-window decoder with HOST window decodes. It needs
-    the host union-find decoder (`UFDecoder`), which is not ported yet:
-    use `device_streaming.DeviceStreamingDecoder`."""
+    """Forward sliding-window decoder over an r-detector stream.
+
+    `decode_stream(dets)` takes `[B, S, r]` detection events (S slices,
+    the last produced by perfect readout, exactly as
+    `uf.spacetime_graph` consumes them) and returns `[B]` uint32
+    observable-flip bitmasks. Equivalent in contract to whole-history
+    `UFDecoder(spacetime_graph(...)).decode_batch`, but with O(window·r)
+    state — S can be arbitrarily large.
+
+    window: slices decoded per step (>= 2*commit recommended);
+    commit: slices committed (and advanced) per step.
+    """
 
     def __init__(self, h, logicals, *, window: int = 6, commit: int = 3,
                  p_space: float | None = None, p_time: float | None = None,
                  use_native: bool | None = None, n_threads: int | None = None):
-        raise NotImplementedError(
-            "StreamingDecoder decodes its windows on the host with "
-            "UFDecoder, which is not ported yet (ROADMAP.md, queue 1, "
-            "slice 3: host decoders); use DeviceStreamingDecoder")
+        if commit < 1 or window <= commit:
+            raise ValueError("need window > commit >= 1")
+        self.h = np.asarray(h, dtype=np.uint8) & 1
+        self.r = self.h.shape[0]
+        self.window = window
+        self.commit = commit
+        self.n_threads = n_threads
+        self._probs = (p_space, p_time)
+        self._logicals = np.asarray(logicals, dtype=np.uint8) & 1
+        g, meta = _window_graph(self.h, self._logicals, window, True,
+                                p_space, p_time)
+        self._mid = (UFDecoder(g, use_native=use_native), meta, g)
+        self._use_native = use_native
+        self._final: dict[int, tuple] = {}
+
+    def _final_decoder(self, slices: int):
+        cached = self._final.get(slices)
+        if cached is None:
+            g, meta = _window_graph(self.h, self._logicals, slices, False,
+                                    *self._probs)
+            cached = (UFDecoder(g, use_native=self._use_native), meta, g)
+            self._final[slices] = cached
+        return cached
+
+    def decode_stream(self, dets: np.ndarray) -> np.ndarray:
+        dets = np.ascontiguousarray(np.asarray(dets), dtype=np.uint8)
+        B, S, r = dets.shape
+        if r != self.r:
+            raise ValueError(f"stream has {r} detectors/slice, graph has {self.r}")
+        W, C = self.window, self.commit
+        obs = np.zeros(B, dtype=np.uint32)
+        carry = np.zeros((B, r), dtype=np.uint8)
+        s0 = 0
+        while True:
+            remaining = S - s0
+            final = remaining <= W
+            slices = remaining if final else W
+            dec, meta, g = (
+                self._final_decoder(slices) if final else self._mid
+            )
+            win = dets[:, s0:s0 + slices, :].copy()
+            win[:, 0, :] ^= carry
+            sel, o = dec.decode_batch(
+                win.reshape(B, slices * r), n_threads=self.n_threads)
+            if final:
+                obs ^= o
+                break
+            # commit rule over selected edges (sel is [B, E] indicators)
+            kind, sl, chk = meta[:, 0], meta[:, 1], meta[:, 2]
+            committed = (
+                ((kind == 0) & (sl < C))        # space edges in commit region
+                | ((kind == 1) & (sl + 1 < C))  # time edges fully inside
+            )
+            crossing = (kind == 1) & (sl == C - 1)  # cut points
+            obs_masks = np.asarray(g.edge_obs, dtype=np.uint32)
+            # obs parity of committed edges (time edges carry obs 0 anyway)
+            contrib = sel[:, committed].astype(np.uint32) * obs_masks[committed]
+            obs ^= np.bitwise_xor.reduce(contrib, axis=1)
+            carry = np.zeros((B, r), dtype=np.uint8)
+            cross_idx = np.nonzero(crossing)[0]
+            carry[:, chk[cross_idx]] ^= sel[:, cross_idx]
+            s0 += C
+        return obs

@@ -16,10 +16,12 @@ batched stabilizer tableau (``engine='tableau'``), with
   syndrome bit, one LUT decode), ``'difference'`` (each round's new
   detection events decoded independently, corrections XORed) and
   ``'stlut'`` (minimum-weight decode over the full spacetime fault set,
-  one gather), which also count the residual syndromes.
-
-The host decoders raise `NotImplementedError` naming the ROADMAP.md
-item that brings them.
+  one gather), which also count the residual syndromes;
+* the host decoders: the detectors are assembled on the device and read
+  back once with the readout word, then decoded on the host with
+  corrections — union-find (``'uf'`` on the phenomenological spacetime
+  graph, ``'dem'`` on the circuit-level DEM graph) or exact matching
+  (``'mwpm'``, ``'dem-mwpm'``) — which also count the residual syndromes.
 
 The two engines consume the noise generator identically (per round: the
 circuit's fault bits, then the measurement flips, then the reset flips),
@@ -237,12 +239,7 @@ def _decode_counts(syns, word, dev, decoder, stlut=None, basis="z"):
 
 _LUT_DECODERS = ("vote", "difference", "stlut")
 _FUSED_DECODERS = ("device-uf", "device-dem")
-_NOT_PORTED = {
-    "uf": "queue 1, slice 3 (host decoders: UFDecoder)",
-    "dem": "queue 1, slice 3 (host decoders: UFDecoder)",
-    "mwpm": "queue 1, slice 3 (host decoders: MWPMDecoder)",
-    "dem-mwpm": "queue 1, slice 3 (host decoders: MWPMDecoder)",
-}
+_HOST_DECODERS = ("uf", "dem", "mwpm", "dem-mwpm")
 
 
 def memory_experiment(code, *, rounds: int, noise: noise_mod.NoiseModel,
@@ -261,10 +258,12 @@ def memory_experiment(code, *, rounds: int, noise: noise_mod.NoiseModel,
     ancillas (`x_extraction_circuit`), decode Z data errors, read out X̄
     after a noiseless transversal H.
 
-    Ported: ``engine='frames'`` (Pauli-frame propagation) and
+    ``engine='frames'`` (Pauli-frame propagation) or
     ``engine='tableau'`` (the batched stabilizer tableau), each with
     ``decoder='device-dem'``, ``'device-uf'``, ``'vote'``,
-    ``'difference'`` or ``'stlut'``. The noise is drawn from a
+    ``'difference'``, ``'stlut'``, or a host decoder: ``'uf'``,
+    ``'dem'``, ``'mwpm'`` or ``'dem-mwpm'`` (``n_threads`` sets the host
+    union-find's threads). The noise is drawn from a
     `torch.Generator` on ``device`` seeded with ``seed``, identically in
     both engines, so at one seed they give bit-identical counts; the
     tableau's collapse bits come from a second generator derived from
@@ -274,8 +273,7 @@ def memory_experiment(code, *, rounds: int, noise: noise_mod.NoiseModel,
         raise ValueError(
             "memory_experiment does not model idle noise (p_idle would be "
             "silently ignored)")
-    if decoder not in _FUSED_DECODERS + _LUT_DECODERS \
-            and decoder not in _NOT_PORTED:
+    if decoder not in _FUSED_DECODERS + _LUT_DECODERS + _HOST_DECODERS:
         raise ValueError(f"unknown decoder {decoder!r}")
     if engine not in ("tableau", "frames"):
         raise ValueError(f"unknown engine {engine!r}")
@@ -283,11 +281,6 @@ def memory_experiment(code, *, rounds: int, noise: noise_mod.NoiseModel,
         raise ValueError(f"unknown basis {basis!r}")
     if decoder == "vote" and rounds % 2 == 0:
         raise ValueError("rounds must be odd for the temporal vote")
-    if decoder in _NOT_PORTED:
-        raise NotImplementedError(
-            f"decoder {decoder!r} is not ported yet (ROADMAP.md, "
-            f"{_NOT_PORTED[decoder]}); use 'device-dem', 'device-uf' or a "
-            f"LUT decoder")
     device = resolve_device(device)
     ext_fn = z_extraction_circuit if basis == "z" else x_extraction_circuit
     final_arrays = None
@@ -313,9 +306,15 @@ def memory_experiment(code, *, rounds: int, noise: noise_mod.NoiseModel,
             return _memory_circuit(
                 generator, collapse, batch, rounds, code, noise, prep_arrays,
                 extract_arrays, n_anc=n_anc, final_arrays=final_arrays)
-    run = _memory_lut if decoder in _LUT_DECODERS else _memory_union_find
-    fails, resid = run(code, rounds, noise, basis, decoder,
-                       stlut_max_weight, ext_fn, final_arrays, device, sample)
+    if decoder in _HOST_DECODERS:
+        fails, resid = _memory_host(code, rounds, noise, basis, decoder,
+                                    n_threads, ext_fn, final_arrays, device,
+                                    sample)
+    else:
+        run = _memory_lut if decoder in _LUT_DECODERS else _memory_union_find
+        fails, resid = run(code, rounds, noise, basis, decoder,
+                           stlut_max_weight, ext_fn, final_arrays, device,
+                           sample)
     return {
         "logical_fail": fails / batch,
         "residual_syndrome": resid / batch,
@@ -324,6 +323,71 @@ def memory_experiment(code, *, rounds: int, noise: noise_mod.NoiseModel,
         "decoder": decoder,
         "basis": basis,
     }
+
+
+def _circuit_graph(code, rounds, noise, raw, logicals, dem: bool):
+    """The matching graph of the union-find and matching decoders: the
+    circuit-level DEM graph (``dem``) or the phenomenological spacetime
+    graph, over the raw checks ``raw``."""
+    if dem:
+        from qcss_tpu_torch.decode.dem import (
+            circuit_level_graph,
+            extraction_gate_list,
+        )
+
+        return circuit_level_graph(
+            raw, extraction_gate_list(code, raw), rounds,
+            p_gate2=noise.p_gate2, p_meas=noise.p_meas,
+            p_reset=noise.p_reset, logicals=logicals,
+            rate2=noise.pauli2,
+        )
+    from qcss_tpu_torch.decode.uf import spacetime_graph
+
+    return spacetime_graph(raw, logicals, rounds)
+
+
+def _count_failures_host(word, corr, code, basis: str = "z"):
+    """The reference's logical/residual accounting on numpy arrays (its
+    `_count_failures` given numpy): the residual syndrome is read with the
+    raw checks the host decoders match on."""
+    corrected = word ^ corr
+    log_row = (code.z_operator_matrix() if basis == "z"
+               else code.x_operator_matrix())[0]
+    raw = (code.raw_parity_check_c2 if basis == "z"
+           else code.raw_parity_check_c1)
+    outcome = (corrected.astype("int32") * log_row.astype("int32")
+               ).sum(axis=-1) & 1
+    resid = (corrected.astype(np.int64) @ np.asarray(raw).T.astype(np.int64)
+             ) & 1
+    return (int(outcome.sum()), int((resid == 1).any(axis=-1).sum()))
+
+
+def _memory_host(code, rounds, noise, basis, decoder, n_threads, ext_fn,
+                 final_arrays, device, sample):
+    """The host decoders over the samples of ``sample``: the detectors are
+    assembled on ``device`` and read back once with the readout word, then
+    decoded with corrections on the host — union-find (``'uf'``, ``'dem'``)
+    or exact matching (``'mwpm'``, ``'dem-mwpm'``). Returns (failures,
+    shots with a residual syndrome)."""
+    from qcss_tpu_torch.decode.mwpm import MWPMDecoder
+    from qcss_tpu_torch.decode.uf import UFDecoder
+
+    raw = (code.raw_parity_check_c2 if basis == "z"
+           else code.raw_parity_check_c1)
+    logicals = (code.z_operator_matrix() if basis == "z"
+                else code.x_operator_matrix())
+    syns, word = sample(ext_fn(code, checks=raw).to_arrays(),
+                        n_anc=raw.shape[0], final_arrays=final_arrays)
+    raw_t = torch.as_tensor(np.asarray(raw, np.uint8), device=device)
+    dets = detector_history(syns, gf2_torch.syndromes_dense(word, raw_t))
+    dets, word = dets.cpu().numpy(), word.cpu().numpy()
+    graph = _circuit_graph(code, rounds, noise, raw, logicals,
+                           decoder.startswith("dem"))
+    if decoder.endswith("mwpm"):
+        corr, _ = MWPMDecoder(graph).decode_batch(dets)
+    else:
+        corr, _ = UFDecoder(graph).decode_batch(dets, n_threads=n_threads)
+    return _count_failures_host(word, corr, code, basis)
 
 
 def _memory_union_find(code, rounds, noise, basis, decoder,
@@ -340,22 +404,8 @@ def _memory_union_find(code, rounds, noise, basis, decoder,
     logicals = (code.z_operator_matrix() if basis == "z"
                 else code.x_operator_matrix())
     extract_arrays = ext_fn(code, checks=raw).to_arrays()
-    if decoder == "device-dem":
-        from qcss_tpu_torch.decode.dem import (
-            circuit_level_graph,
-            extraction_gate_list,
-        )
-
-        graph = circuit_level_graph(
-            raw, extraction_gate_list(code, raw), rounds,
-            p_gate2=noise.p_gate2, p_meas=noise.p_meas,
-            p_reset=noise.p_reset, logicals=logicals,
-            rate2=noise.pauli2,
-        )
-    else:
-        from qcss_tpu_torch.decode.uf import spacetime_graph
-
-        graph = spacetime_graph(raw, logicals, rounds)
+    graph = _circuit_graph(code, rounds, noise, raw, logicals,
+                           decoder == "device-dem")
     decode_fn = make_obs_decoder(graph, device=device)
     fails, conv = _memory_fused_device(
         sample, extract_arrays, n_anc=raw.shape[0], decode_fn=decode_fn,

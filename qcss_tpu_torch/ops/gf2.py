@@ -240,9 +240,18 @@ def transversal_t_power(stab_rows, logical_row) -> int | None:
 
 
 def _native_table(parity_check: np.ndarray, limit: int, stop_on_collision: bool):
-    """The C++ enumerator's loader is not ported yet: None sends every
-    caller to the Python paths below, which build identical tables."""
-    return None
+    """Try the C++ enumerator (qcss_tpu_torch.native); None on unavailability.
+    Semantics are identical to the Python paths below — covered by
+    equivalence tests."""
+    try:
+        from qcss_tpu_torch import native
+    except ImportError:  # pragma: no cover
+        return None
+    result = native.syndrome_table_native(parity_check, limit, stop_on_collision)
+    if result is None:
+        return None
+    t, keys, errors = result
+    return t, {k: errors[i] for i, k in enumerate(keys)}
 
 
 def syndrome_table(parity_check, max_weight: int | None = None):

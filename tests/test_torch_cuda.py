@@ -905,3 +905,73 @@ def test_sparse_kernel_distance_scales(cuda, scale):
             plan["smem_bytes"]) == _plan(48)
     dets = _dets(g, 3000, 0.1, seed=scale % 97, device=cuda)
     _sparse_equal(tables, 48, 1180, dets)
+
+
+@pytest.mark.parametrize("d,core,buf", [(3, 3, 3), (5, 5, 7), (11, 11, 16)])
+def test_parallel_window_on_cuda_matches_cpu(cuda, d, core, buf):
+    # every window shape through K1 (chunk lanes from d=5 on) against the
+    # plain version on the CPU, bit for bit
+    from qcss_tpu_torch.decode import device_uf_cuda
+    from qcss_tpu_torch.decode.parallel_window import ParallelWindowDecoder
+    from qcss_tpu_torch.decode.streaming import sample_phenomenological_stream
+
+    code = rotated_surface(d)
+    h, lz = code.raw_parity_check_c2, code.z_operator_matrix()
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    dets, _ = sample_phenomenological_stream(gen, 0.01, 0.01, 96, 96, h, lz)
+    before = (device_uf_cuda.launches, device_uf_cuda.chunk_launches)
+    dec = ParallelWindowDecoder(h, lz, core=core, buf=buf, device=cuda)
+    got = dec.decode_stream(dets)
+    want = ParallelWindowDecoder(h, lz, core=core, buf=buf,
+                                 device="cpu").decode_stream(dets.cpu())
+    np.testing.assert_array_equal(got, want)
+    # first, interior, last and seam windows: one launch each
+    shapes = (dec._first, dec._mid, dec._seam, *dec._last.values())
+    assert device_uf_cuda.launches - before[0] == len(shapes) == 4
+    assert device_uf_cuda.chunk_launches - before[1] == sum(
+        bool(g.stencil.chunks) for g in shapes) == (0 if d == 3 else
+                                                   1 if d == 5 else 3)
+
+
+def test_device_uf_decoder_on_cuda(cuda):
+    # no caps: the stencil kernel, every shot converged, equal to the CPU
+    from qcss_tpu_torch.decode import device_uf_cuda
+    from qcss_tpu_torch.decode.uf import UFDecoder
+
+    g = _graph("dem", 5)
+    dets = _dets(g, 2048, 0.01, 8, cuda)
+    before = device_uf_cuda.launches
+    dec = tdu.DeviceUFDecoder(g, device=cuda)
+    _, obs = dec.decode_batch(dets)
+    assert device_uf_cuda.launches == before + 1 and dec.fallback_shots == 0
+    _, obs_cpu = tdu.DeviceUFDecoder(g, device="cpu").decode_batch(
+        dets.cpu())
+    np.testing.assert_array_equal(obs, obs_cpu)
+    _, host = UFDecoder(g).decode_batch(dets.cpu().numpy(),
+                                        want_corrections=False)
+    assert np.mean((host & 1) == (obs & 1)) > 0.93
+    capped = tdu.DeviceUFDecoder(g, prop_cap=1, device=cuda)
+    _, obs_c = capped.decode_batch(dets)
+    assert capped.fallback_shots > 0
+
+
+@pytest.mark.parametrize("decoder", ["uf", "dem", "mwpm", "dem-mwpm"])
+def test_host_decoders_on_cuda_samples(cuda, decoder):
+    # sampled on the card, decoded on the host: the tableau engine equals
+    # the frames engine there too
+    from qcss_tpu_torch.experiments.memory import memory_experiment
+    from qcss_tpu_torch.sim.noise import NoiseModel
+
+    kw = dict(rounds=3, noise=NoiseModel(p_gate2=1e-2, p_meas=1e-2),
+              batch=1024, seed=4, decoder=decoder, device="cuda")
+    a = memory_experiment(rotated_surface(3), engine="frames", **kw)
+    b = memory_experiment(rotated_surface(3), engine="tableau", **kw)
+    assert a["logical_fail"] > 0
+    assert a["logical_fail"] == b["logical_fail"]
+    assert a["residual_syndrome"] == b["residual_syndrome"]
+
+
+def test_native_library_builds(cuda):
+    from qcss_tpu_torch import native
+
+    assert native.available(), native.load_error

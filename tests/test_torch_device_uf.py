@@ -160,8 +160,9 @@ def test_every_low_weight_error_decodes_exactly(d):
 def test_unported_routes_raise():
     # Every route of `decode_labels` is ported: what used to raise
     # NotImplementedError (per-shot weights, iteration caps, graphs that
-    # are not stencil-eligible, spilled lanes on the CPU) now decodes.
-    # What still raises is the host side of streaming.
+    # are not stencil-eligible, spilled lanes on the CPU) now decodes, and
+    # so does the host side of streaming (`StreamingDecoder` over the host
+    # union-find); it still raises on a malformed window.
     g = _port_graph(_graph("dem", 3))
     dg = tdu.build_device_graph(g)
     rng = np.random.default_rng(0)
@@ -183,8 +184,11 @@ def test_unported_routes_raise():
     from qcss_tpu_torch.decode.streaming import StreamingDecoder
 
     code = rotated_surface(3)
-    with pytest.raises(NotImplementedError):
-        StreamingDecoder(code.raw_parity_check_c2, code.z_operator_matrix())
+    h, lz = code.raw_parity_check_c2, code.z_operator_matrix()
+    with pytest.raises(ValueError, match="window > commit"):
+        StreamingDecoder(h, lz, window=2, commit=2)
+    quiet = np.zeros((4, 13, h.shape[0]), np.uint8)
+    assert not StreamingDecoder(h, lz).decode_stream(quiet).any()
 
 
 @pytest.mark.cuda

@@ -3,7 +3,8 @@
 * `import qcss_tpu_torch` (and every module of it) must leave jax and the
   JAX package out of the process;
 * the host-only modules copied from the JAX package must equal their
-  originals once the `qcss_tpu.` imports are rewritten (exact text);
+  originals once the `qcss_tpu.` imports are rewritten (exact text), and
+  so must the copied definitions of the modules that are partly ported;
 * codes and circuit-level graphs built by both packages must be equal
   array for array (exact: the construction is integer/GF(2) math).
 """
@@ -29,13 +30,19 @@ PORT_MODULES = [
     "qcss_tpu_torch._cuda",
     "qcss_tpu_torch.benchmarks.device_uf_bench",
     "qcss_tpu_torch.benchmarks.profiling",
+    "qcss_tpu_torch.benchmarks.pw_bench",
     "qcss_tpu_torch.benchmarks.steane_mc",
     "qcss_tpu_torch.benchmarks.stream_bench",
     "qcss_tpu_torch.benchmarks.syndrome_sweep",
     "qcss_tpu_torch.benchmarks.tableau_bench",
+    "qcss_tpu_torch.benchmarks.uf_bench",
     "qcss_tpu_torch.circuits",
     "qcss_tpu_torch.codes",
+    "qcss_tpu_torch.codes.distance",
+    "qcss_tpu_torch.codes.symplectic",
     "qcss_tpu_torch.decode",
+    "qcss_tpu_torch.decode.blossom",
+    "qcss_tpu_torch.decode.calibrate",
     "qcss_tpu_torch.decode.classical",
     "qcss_tpu_torch.decode.device_sparse",
     "qcss_tpu_torch.decode.device_sparse_cuda",
@@ -46,13 +53,18 @@ PORT_MODULES = [
     "qcss_tpu_torch.decode.lut",
     "qcss_tpu_torch.decode.montecarlo",
     "qcss_tpu_torch.decode.multiround",
+    "qcss_tpu_torch.decode.mwpm",
+    "qcss_tpu_torch.decode.parallel_window",
     "qcss_tpu_torch.decode.spacetime",
     "qcss_tpu_torch.decode.streaming",
     "qcss_tpu_torch.decode.sweep",
+    "qcss_tpu_torch.decode.uf",
     "qcss_tpu_torch.experiments.memory",
     "qcss_tpu_torch.ftqc",
     "qcss_tpu_torch.ftqc.engines",
+    "qcss_tpu_torch.native",
     "qcss_tpu_torch.ops.cuda_gf2",
+    "qcss_tpu_torch.ops.gf2",
     "qcss_tpu_torch.ops.gf2_torch",
     "qcss_tpu_torch.sim.cuda_measure",
     "qcss_tpu_torch.sim.frame",
@@ -91,7 +103,8 @@ def test_import_leaves_jax_out():
 
 def _rewired(rel: str) -> str:
     return (ROOT / "qcss_tpu" / rel).read_text().replace(
-        "qcss_tpu.", "qcss_tpu_torch.")
+        "qcss_tpu.", "qcss_tpu_torch.").replace(
+        "from qcss_tpu import", "from qcss_tpu_torch import")
 
 
 def _port(rel: str) -> str:
@@ -115,7 +128,9 @@ def _segments(text: str, names) -> dict:
 VERBATIM = ["errors.py", "circuits/ir.py", "circuits/encoding.py",
             "circuits/quil.py", "circuits/__init__.py", "codes/pauli.py",
             "codes/qecc.py", "codes/families.py", "codes/__init__.py",
-            "decode/dem.py", "sim/statevec.py"]
+            "codes/symplectic.py", "codes/distance.py", "decode/dem.py",
+            "decode/blossom.py", "decode/calibrate.py", "decode/mwpm.py",
+            "sim/statevec.py"]
 
 
 @pytest.mark.parametrize("rel", VERBATIM)
@@ -124,12 +139,9 @@ def test_verbatim_copy(rel):
 
 
 def test_gf2_copy_except_native_loader():
-    # The native enumerator's loader is not ported: `_native_table`
-    # returns None, and the Python enumerator builds identical tables.
-    orig, port = _rewired("ops/gf2.py"), _port("ops/gf2.py")
-    o_seg = _segments(orig, ["_native_table"])["_native_table"]
-    p_seg = _segments(port, ["_native_table"])["_native_table"]
-    assert orig.replace(o_seg, "") == port.replace(p_seg, "")
+    # The native enumerator's loader is ported (`qcss_tpu_torch.native`),
+    # so `_native_table` is the reference's text too: the whole module is.
+    assert _port("ops/gf2.py") == _rewired("ops/gf2.py")
 
 
 def test_css_copy_up_to_device_arrays():
@@ -143,14 +155,20 @@ def test_css_copy_up_to_device_arrays():
 COPIED_DEFS = [
     ("decode/uf.py", ["MatchingGraph", "weights_from_probs",
                       "_column_obs_masks", "graph_from_checks",
-                      "spacetime_graph"]),
+                      "spacetime_graph", "_decode_one_py",
+                      "_decode_batch_py", "UFDecoder", "_pack_parity"]),
+    ("native/__init__.py", ["_bind", "available", "syndrome_table_native",
+                            "uf_decode_batch_native", "MwpmNativeHandle",
+                            "mwpm_create_native", "osd0_batch_native",
+                            "osde_batch_native", "rref_native"]),
+    ("decode/parallel_window.py", ["_pw_graph"]),
     ("decode/device_sparse.py", ["UNREACH", "SparseTables",
                                  "build_sparse_tables"]),
     ("experiments/memory.py", ["z_extraction_circuit",
                                "x_extraction_circuit"]),
     ("decode/spacetime.py", ["spacetime_check_matrix",
                              "spacetime_correction_lut"]),
-    ("decode/streaming.py", ["_window_graph"]),
+    ("decode/streaming.py", ["_window_graph", "StreamingDecoder"]),
 ]
 
 

@@ -12,6 +12,15 @@
 * The tableau engine must give counts bit-identical to the frames
   engine's at the same seed, in both bases, as the reference's engines
   do (tests/test_memory_experiment.py); noiseless runs are silent.
+* The host decoders ('uf', 'dem', 'mwpm', 'dem-mwpm'), given the
+  syndromes and readout the JAX sampler drew, must give the reference's
+  logical-failure and residual-syndrome counts exactly; the port's whole
+  runs must fall inside the 99.9% Wilson interval of those counts, and
+  'dem' must stay within the reference's bound of 'device-dem' at one
+  seed (tests/test_device_uf.py).
+* `DeviceUFDecoder` against the host `UFDecoder` by agreement, as the
+  reference holds its own (tests/test_device_uf.py); the shots it sends
+  to the host must decode exactly as the host decoder does.
 """
 
 import math
@@ -24,6 +33,8 @@ import torch
 
 from qcss_tpu.codes.families import rotated_surface, steane
 from qcss_tpu.decode import device_uf as jdu
+from qcss_tpu.decode import mwpm as jmw
+from qcss_tpu.decode import uf as juf
 from qcss_tpu.decode.dem import circuit_level_graph, extraction_gate_list
 from qcss_tpu.decode.spacetime import detector_history, spacetime_correction_lut
 from qcss_tpu.experiments import memory as jmem
@@ -108,14 +119,24 @@ def test_unported_engines_and_decoders_raise():
         tmem.memory_experiment(code, rounds=3, noise=noise,
                                decoder="device-dem", engine="statevector",
                                device="cpu")
-    for decoder in ("uf", "dem-mwpm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmem.memory_experiment(code, rounds=3, noise=noise,
-                                   decoder=decoder, engine="frames",
-                                   device="cpu")
     with pytest.raises(ValueError):
         tmem.memory_experiment(code, rounds=3, noise=noise,
                                decoder="nope", engine="frames", device="cpu")
+    # Steane is not matchable: the matching decoders raise the reference's
+    # errors (a qubit in three checks; a fault flipping three detectors)
+    raw = steane().raw_parity_check_c2
+    with pytest.raises(ValueError) as e_uf:
+        juf.graph_from_checks(raw, steane().z_operator_matrix())
+    with pytest.raises(ValueError) as e_dem:
+        circuit_level_graph(raw, extraction_gate_list(steane(), raw), 3,
+                            logicals=steane().z_operator_matrix(), **NOISE)
+    for decoder, want in (("uf", e_uf), ("mwpm", e_uf), ("dem", e_dem),
+                          ("dem-mwpm", e_dem)):
+        with pytest.raises(ValueError) as got:
+            tmem.memory_experiment(tfam.steane(), rounds=3, noise=noise,
+                                   decoder=decoder, engine="frames",
+                                   batch=64, device="cpu")
+        assert str(got.value) == str(want.value)
 
 
 def test_default_device_is_the_card():
@@ -203,7 +224,9 @@ def test_lut_decoder_rate_within_wilson_of_jax(jax_lut_samples):
 @pytest.mark.parametrize("code_name,decoder,basis", [
     ("steane", "vote", "z"), ("steane", "vote", "x"),
     ("steane", "difference", "z"), ("steane", "stlut", "x"),
-    ("surface3", "device-dem", "z"), ("surface3", "device-uf", "x")])
+    ("surface3", "device-dem", "z"), ("surface3", "device-uf", "x"),
+    ("surface3", "uf", "z"), ("surface3", "dem", "x"),
+    ("surface3", "mwpm", "x"), ("surface3", "dem-mwpm", "z")])
 def test_tableau_engine_bit_identical_to_frames(code_name, decoder, basis):
     # the reference test's setting (Steane, R=3, B=1024, seed 7); the
     # surface code adds reset noise, which both engines draw alike
@@ -228,3 +251,169 @@ def test_tableau_engine_noiseless_is_silent(basis):
                                  engine="tableau", device="cpu")
     assert out["logical_fail"] == 0.0 and out["residual_syndrome"] == 0.0
 
+
+
+HOST_DECODERS = ("uf", "dem", "mwpm", "dem-mwpm")
+HOST_BATCH = 4096
+
+
+@pytest.fixture(scope="module")
+def jax_surface_draw():
+    """A surface d=3, R=3 Z-memory draw of the JAX sampler over the raw
+    checks, with the reference's host decodes of it: (syns, word, {decoder:
+    (failures, residual shots)})."""
+    code = rotated_surface(3)
+    raw = code.raw_parity_check_c2
+    syns, word = jmem._memory_circuit_frames(
+        jax.random.key(21), HOST_BATCH, 3, code, JNoise(**NOISE),
+        tuple(map(jnp.asarray, jmem.z_extraction_circuit(
+            code, checks=raw).to_arrays())), n_anc=raw.shape[0])
+    syns, word = np.asarray(syns), np.asarray(word)
+    dets = detector_history(syns, ((word.astype(np.int64) @ raw.T) & 1
+                                   ).astype(np.uint8))
+    lz = code.z_operator_matrix()
+    graphs = {"uf": juf.spacetime_graph(raw, lz, 3),
+              "dem": circuit_level_graph(
+                  raw, extraction_gate_list(code, raw), 3, logicals=lz,
+                  **NOISE)}
+    want = {}
+    for decoder in HOST_DECODERS:
+        g = graphs[decoder.split("-")[0] if decoder != "mwpm" else "uf"]
+        if decoder.endswith("mwpm"):
+            corr, _ = jmw.MWPMDecoder(g).decode_batch(dets)
+        else:
+            corr, _ = juf.UFDecoder(g).decode_batch(dets)
+        c = jmem._count_failures(word, corr, code, "z")
+        want[decoder] = (c["logical_fail"], c["residual_syndrome"])
+    return syns, word, want
+
+
+@pytest.mark.parametrize("decoder", HOST_DECODERS)
+def test_host_decoders_identical_given_jax_samples(jax_surface_draw,
+                                                   decoder):
+    syns, word, want = jax_surface_draw
+    got = tmem._memory_host(
+        tfam.rotated_surface(3), 3, TNoise(**NOISE), "z", decoder, None,
+        tmem.z_extraction_circuit, None, torch.device("cpu"),
+        lambda *a, **k: (torch.from_numpy(np.array(syns)),
+                         torch.from_numpy(np.array(word))))
+    assert want[decoder][0] > 0
+    assert got == want[decoder]
+
+
+@pytest.mark.parametrize("decoder", HOST_DECODERS)
+def test_host_decoder_rate_within_wilson_of_jax(jax_surface_draw, decoder):
+    k = jax_surface_draw[2][decoder][0]
+    Bt = HOST_BATCH * 4
+    rt = tmem.memory_experiment(tfam.rotated_surface(3), rounds=3,
+                                noise=TNoise(**NOISE), decoder=decoder,
+                                engine="frames", batch=Bt, seed=3,
+                                device="cpu")
+    assert rt["samples"] == Bt and rt["decoder"] == decoder
+    assert 0.0 <= rt["residual_syndrome"] <= 1.0
+    lo, hi = _wilson(k, HOST_BATCH)
+    assert 0 < rt["logical_fail"] and lo <= rt["logical_fail"] <= hi, (
+        k / HOST_BATCH, rt["logical_fail"], lo, hi)
+
+
+def test_dem_within_reference_bound_of_device_dem():
+    # the reference's test_fused_memory_experiment_matches_host_dem:
+    # identical samples, near-identical decoders
+    kw = dict(rounds=3, noise=TNoise(p_gate2=2e-3, p_meas=1e-2),
+              batch=8192, seed=5, engine="frames", device="cpu")
+    host = tmem.memory_experiment(tfam.rotated_surface(3), decoder="dem",
+                                  **kw)
+    dev = tmem.memory_experiment(tfam.rotated_surface(3),
+                                 decoder="device-dem", **kw)
+    assert host["logical_fail"] > 0
+    assert abs(host["logical_fail"] - dev["logical_fail"]) * 8192 < 8, (
+        host["logical_fail"], dev["logical_fail"])
+    assert np.isnan(dev["residual_syndrome"])
+    assert not np.isnan(host["residual_syndrome"])
+
+
+def _cc_shots(d, p, batch, seed):
+    code = tfam.rotated_surface(d)
+    h = np.asarray(code.raw_parity_check_c2, np.uint8)
+    lz = np.asarray(code.z_operator_matrix(), np.uint8)
+    rng = np.random.default_rng(seed)
+    errs = (rng.random((batch, h.shape[1])) < p).astype(np.uint8)
+    return (tuf.graph_from_checks(h, lz), ((errs @ h.T) & 1).astype(np.uint8),
+            ((errs @ lz.T) & 1)[:, 0])
+
+
+@pytest.mark.parametrize("d", [3, 5])
+def test_device_uf_exact_on_low_weight_errors(d):
+    code = tfam.rotated_surface(d)
+    h = np.asarray(code.raw_parity_check_c2, np.uint8)
+    lz = np.asarray(code.z_operator_matrix(), np.uint8)
+    from itertools import combinations
+
+    errs = [np.zeros(code.n, np.uint8)]
+    for w in range(1, (d - 1) // 2 + 1):
+        for qs in combinations(range(code.n), w):
+            e = np.zeros(code.n, np.uint8)
+            e[list(qs)] = 1
+            errs.append(e)
+    errs = np.stack(errs)
+    g = tuf.graph_from_checks(h, lz)
+    dec = tdu.DeviceUFDecoder(g, device="cpu")
+    _, obs = dec.decode_batch((errs @ h.T) & 1)
+    assert obs.dtype == np.uint32 and dec.fallback_shots == 0
+    np.testing.assert_array_equal(obs & 1, ((errs @ lz.T) & 1)[:, 0])
+
+
+def test_device_uf_agrees_with_host():
+    # the reference's bounds: > 0.97 at code capacity (d=7, p=0.05),
+    # > 0.95 on the spacetime graph, > 0.93 on the DEM graph
+    g, syn, par = _cc_shots(7, 0.05, 4096, 7)
+    _, host = tuf.UFDecoder(g).decode_batch(syn, want_corrections=False)
+    _, dev = tdu.DeviceUFDecoder(g, device="cpu").decode_batch(syn)
+    assert np.mean((host & 1) == (dev & 1)) > 0.97
+    assert abs(np.mean((host & 1) != par) - np.mean((dev & 1) != par)) < 0.01
+    code = tfam.rotated_surface(3)
+    raw = code.raw_parity_check_c2
+    rng = np.random.default_rng(11)
+    for g, rate, bound in (
+            (tuf.spacetime_graph(raw, code.z_operator_matrix(), 3), 0.04,
+             0.95),
+            (circuit_level_graph(raw, extraction_gate_list(code, raw), 3,
+                                 p_gate2=2e-3, p_meas=1e-2,
+                                 logicals=code.z_operator_matrix()),
+             0.03, 0.93)):
+        dets = (rng.random((1024, g.num_nodes)) < rate).astype(np.uint8)
+        _, host = tuf.UFDecoder(g).decode_batch(dets, want_corrections=False)
+        dec = tdu.DeviceUFDecoder(g, device="cpu")
+        _, dev = dec.decode_batch(torch.as_tensor(dets))
+        assert np.mean((host & 1) == (dev & 1)) > bound
+        assert dec.fallback_shots == 0
+
+
+def test_device_uf_fallback_shots_decode_on_the_host():
+    g, syn, _ = _cc_shots(5, 0.1, 512, 3)
+    dec = tdu.DeviceUFDecoder(g, prop_cap=1, device="cpu")
+    _, obs = dec.decode_batch(syn)
+    dg = tdu.build_device_graph(g, prop_cap=1)
+    _, conv = tdu.decode_obs(dg, torch.as_tensor(syn))
+    bad = np.nonzero(~conv.numpy())[0]
+    assert 0 < bad.size == dec.fallback_shots < len(syn)
+    _, host = tuf.UFDecoder(g).decode_batch(syn[bad], want_corrections=False)
+    np.testing.assert_array_equal(obs[bad], host)
+    # per-shot weights: the device decode and the host fallback both use
+    # them
+    w = np.random.default_rng(4).integers(1, 6, (len(syn), g.num_edges))
+    _, conv_w = tdu.decode_obs(dg, torch.as_tensor(syn),
+                               torch.as_tensor(w.astype(np.int32)))
+    bad_w = np.nonzero(~conv_w.numpy())[0]
+    _, obs_w = dec.decode_batch(syn, shot_weights=w)
+    assert dec.fallback_shots == bad.size + bad_w.size and bad_w.size
+    _, host_w = tuf.UFDecoder(g).decode_batch(
+        syn[bad_w], want_corrections=False,
+        shot_weights=w[bad_w].astype(np.uint8))
+    np.testing.assert_array_equal(obs_w[bad_w], host_w)
+    with pytest.raises(ValueError, match="observable flips only"):
+        dec.decode_batch(syn, want_corrections=True)
+    strict = tdu.DeviceUFDecoder(g, prop_cap=1, host_fallback=False,
+                                 device="cpu")
+    with pytest.raises(RuntimeError, match="host_fallback"):
+        strict.decode_batch(syn)

@@ -183,8 +183,30 @@ def test_decoder_argument_checks():
     with pytest.raises(ValueError, match="rounds >= window"):
         tds.stream_memory_rate(h, lz, 0.01, 0.01, rounds=4, batch=8,
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="UFDecoder"):
-        tst.StreamingDecoder(h, lz)
+    with pytest.raises(ValueError, match="window > commit"):
+        tst.StreamingDecoder(h, lz, window=3, commit=3)
+    with pytest.raises(ValueError, match="detectors/slice"):
+        tst.StreamingDecoder(h, lz).decode_stream(
+            np.zeros((2, 8, h.shape[0] - 1), np.uint8))
+
+
+@pytest.mark.parametrize("d,weighted,use_native", [(5, False, True),
+                                                   (5, True, True),
+                                                   (3, True, False)])
+def test_host_streaming_decoder_bit_identical(d, weighted, use_native):
+    # the host decoder (windows on the host union-find) against the
+    # reference's, on shared detectors; the last window is shorter
+    h, lz = _code(d)
+    dets = _np_stream(h, 40 + d, 96, 21, 0.008, 0.008)  # 22 slices
+    kw = dict(window=8, commit=4)
+    if weighted:
+        kw.update(p_space=0.008, p_time=0.004)
+    want = jst.StreamingDecoder(h, lz, use_native=True, **kw).decode_stream(
+        dets)
+    got = tst.StreamingDecoder(h, lz, use_native=use_native,
+                               **kw).decode_stream(dets)
+    assert got.dtype == np.uint32 and want.any()
+    np.testing.assert_array_equal(got, want)
 
 
 def _two_sample_ok(f1, n1, f2, n2):
