@@ -92,7 +92,11 @@ the stencil kernel:
    its launch plan (form, shots a block, shared memory, registers); K2 at
    d=11, B=16384, d_max=48 with its plan, its defects, events, mask
    builds and sweeps a shot, and a bound from its bytes and the pair tests
-   (event searches, mask builds) a walk of its plain version counts; prints K1's launch plan (shots a
+   (event searches, mask builds) a walk of its plain version counts; K3,
+   K4 and K5 through `benchmarks/staged_bench.py` (a launch of the bare
+   entry point in a CUDA graph at B=16384 on the state entering round 2,
+   the wrapper beside it) with K3's and K5's launch plans (shots a block,
+   shared memory, registers, the tables' form); prints K1's launch plan (shots a
    block, shared memory, registers) and the work its data need at its
    three shapes, the parallel window's d=11 interior window the third
    (shots running, live vertices and sweeps per round,
@@ -199,42 +203,6 @@ def packed(bits, device):
     from qcss_tpu_torch.ops import gf2_torch
 
     return gf2_torch.words32(gf2_torch.pack_bits(bits)).to(device)
-
-
-def round_states(duf, dg, defect, rounds: int):
-    """The state entering each of the first growth rounds of the staged
-    decode, walked with the plain pieces: (packed, seed, sup [B, O+KB, V])."""
-    import torch
-
-    B, V = defect.shape
-    O = len(dg.stencil.deltas)
-    KB = dg.stencil.bmask.shape[0]
-    packed = duf.initial_labels(dg, B, defect.device)
-    sup = torch.zeros((B, O + KB, V), dtype=torch.int32,
-                      device=defect.device)
-    seed = defect
-    out = []
-    for _ in range(rounds):
-        out.append((packed, seed, sup))
-        packed, sups, supbs, _ = duf._round_plain(dg, packed, seed,
-                                                  sup[:, :O], sup[:, O:])
-        sup = torch.cat([sups, supbs], dim=1)
-        seed = duf.parity_seeds(dg, packed, defect)
-    return out
-
-
-def staged_inputs(duf, dg, state):
-    """The inputs of K4 and K3 inside the round that starts from ``state``:
-    the passes of the activity spread, and the saturation masks after the
-    round's growth step (K3 then does the round's propagation)."""
-    packed, seed, sup = state
-    O = len(dg.stencil.deltas)
-    satm, _ = duf._saturated(dg, sup[:, :O], sup[:, O:])
-    passes = duf._cluster_passes(dg, packed, satm)
-    act = duf._act_plain(dg, seed, passes)
-    sups, supbs, _ = duf._grow_step(dg, packed, act, sup[:, :O], sup[:, O:])
-    satm, satb = duf._saturated(dg, sups, supbs)
-    return satm.contiguous(), satb.contiguous(), passes
 
 
 def k1_work(duf, dg, defect):
@@ -630,6 +598,7 @@ def main() -> int:
         gf2_bench,
         measure_sparse_bench as msb,
         pw_bench,
+        staged_bench,
         steane_mc,
         stream_bench,
         syndrome_sweep,
@@ -955,9 +924,10 @@ def main() -> int:
     #    d=11 decode of the 1024 rows, and the two staged decodes
     O7 = len(st.deltas)
     k3_err = k4_err = k5_err = 0
-    for rnd, state in enumerate(round_states(duf, dg, defect, 3), 1):
-        packed_s, seed_s, sup_s = state
-        satm_s, satb_s, passes_s = staged_inputs(duf, dg, state)
+    for rnd, state in enumerate(dstaged.round_inputs(dg, defect, 3), 1):
+        packed_s, seed_s, sup_s = state["packed"], state["seed"], state["sup"]
+        satm_s, satb_s = state["satm"], state["satb"]
+        passes_s = state["passes"]
         got = device_uf_cuda.stencil_round(dg, packed_s, seed_s, sup_s)
         ref = duf._round_plain(dg, packed_s, seed_s, sup_s[:, :O7],
                                sup_s[:, O7:])
@@ -1287,49 +1257,33 @@ def main() -> int:
         f"{stream['wall_s']:.3f} s = "
         f"{stream['stencil_kernel_share_estimate']:.3f}")
 
-    # K3, K4, K5: one launch each at B=16384 on the state entering round 2.
-    # Bytes the function needs: int32 planes for labels and supports, one
-    # byte an element for every 0/1 plane (K3's and K4's masks, which the
-    # kernels read as bytes, and K4's act and K5's seed and grew, which the
-    # port's interface carries as int32), and the tables each kernel reads.
-    state2 = round_states(duf, dg, defect_big, 2)[1]
-    packed_s, seed_s, sup_s = state2
-    satm_s, satb_s, passes_s = staged_inputs(duf, dg, state2)
-    KB1 = st.bmask.shape[0]
-    plane = 4 * BATCH * V1
-    flags = BATCH * V1  # a 0/1 plane at one byte an element
-    tab_words = st.kernel_tables.numel()
+    # K3, K4, K5 (`benchmarks/staged_bench.py`, which holds each against
+    # its plain version first): device time a launch of the bare C entry
+    # point in a CUDA graph at B=16384 on the state entering round 2 (every
+    # input exceeds the L2), the wrapper back to back beside it, and the
+    # bound from the bytes the function needs (int32 planes for labels and
+    # supports, one byte an element for every 0/1 plane, the tables each
+    # kernel reads); K3's and K5's launch plans
+    staged_plans = staged_bench.plans(dg)
+    for key, plan in staged_plans.items():
+        log(f"{key} plan at V={V1}: {plan['shots_per_block']} shots (warps) "
+            f"a block, {plan['smem_bytes']} B shared ({plan['shot_bytes']} a "
+            f"shot; tables: {plan['form']}), {plan['registers']} registers, "
+            f"{plan['blocks_per_sm']} block(s) an SM")
     staged = {}
-    for key, kernel, plain, nbytes in (
-            ("K3", lambda: device_uf_cuda.stencil_prop(dg, packed_s, satm_s,
-                                                       satb_s),
-             lambda: duf._prop_plain(dg, packed_s, satm_s, satb_s),
-             2 * plane + (O7 + KB1) * flags
-             + 4 * ((O7 + KB1) * V1 + O7)),
-            ("K4", lambda: device_uf_cuda.stencil_act(dg, seed_s, passes_s),
-             lambda: duf._act_plain(dg, seed_s, passes_s),
-             (2 + O7) * flags + 4 * O7),
-            ("K5", lambda: device_uf_cuda.stencil_round(dg, packed_s, seed_s,
-                                                        sup_s),
-             lambda: (lambda r: (r[0], torch.cat([r[1], r[2]], dim=1), r[3]))(
-                 duf._round_plain(dg, packed_s, seed_s, sup_s[:, :O7],
-                                  sup_s[:, O7:])),
-             (2 + 2 * (O7 + KB1)) * plane + 2 * flags
-             + 4 * (tab_words + O7))):
-        got, ref = kernel(), plain()
-        got = got if isinstance(got, tuple) else (got,)
-        ref = ref if isinstance(ref, tuple) else (ref,)
-        err = max(max_abs(a, b) for a, b in zip(got, ref))
-        if err:
-            raise RuntimeError(f"{key} disagrees with its plain version at "
-                               f"B={BATCH} (max abs err {err})")
-        staged[key] = {"ms": cuda_ms(kernel, 10),
-                       "plain_ms": cuda_ms(plain, 2), "library_ms": None}
-        staged[key]["bound_ms"], staged[key]["bound_by"] = bound(nbytes)
-        log(f"{key} B={BATCH} on round-2 state: kernel "
-            f"{staged[key]['ms']:.4f} ms (== plain), plain "
-            f"{staged[key]['plain_ms']:.3f} ms, bound "
-            f"{staged[key]['bound_ms']:.4f} ms ({staged[key]['bound_by']})")
+    for row in staged_bench.kernel_rows(dg, dets_big, reps=20, rounds=2):
+        if row["round"] != 2:
+            continue
+        key = row["kernel"]
+        staged[key] = {k: row[k] for k in (
+            "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}
+        if key in staged_plans:
+            staged[key]["plan"] = staged_plans[key]
+        log(f"{key} B={BATCH} on round-2 state: a launch in a graph "
+            f"{row['ms']:.4f} ms (wrapper {row['wrapper_ms']:.4f}; == plain), "
+            f"plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}): {row['ms'] / row['bound_ms']:.2f}x")
 
     # Integer operations counted per (shot, check row): one LOP3 per word
     # for acc ^= e & h, a popcount, and one or two to place the bit (K6:

@@ -109,6 +109,9 @@ def load() -> ctypes.CDLL:
         lib.qcss_uf_stencil_full_config.argtypes = [
             i32, i32, i32, i32, i32, ptr]
         lib.qcss_uf_stencil_full_config.restype = i32
+        lib.qcss_stencil_staged_config.argtypes = [
+            i32, i32, i32, i32, i32, ptr, ptr]
+        lib.qcss_stencil_staged_config.restype = i32
         lib.qcss_stencil_prop.argtypes = [
             ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr]
         lib.qcss_stencil_prop.restype = i32

@@ -1,17 +1,21 @@
-// Device code of the staged stencil union-find kernels
-// (uf_stencil_staged.cu), and the limits every stencil kernel shares.
+// Device code shared by the stencil union-find kernels (uf_stencil_full.cu,
+// uf_stencil_staged.cu): the limits, the edge-word forms, the launch plan
+// of a persistent block that stages the graph's tables beside its shots,
+// and the warp-wide pieces of a shot's state.
 //
-// Every function here is called by all threads of one block, which holds
-// one shot: per-vertex state lives in shared memory, V vertices with the
-// boundary hub at V-1, O stencil offsets (edge (o, v) joins v and
-// v + deltas[o]) and KB boundary slots per vertex. Labels are packed int32
-// words, comp << L | lanes. `sat[v]` is a bit word: bit o says edge (o, v)
-// is saturated, bit O+k that boundary slot (k, v) is.
+// A shot has V vertices with the boundary hub at V-1, O stencil offsets
+// (edge (o, v) joins v and v + deltas[o]) and KB boundary slots per
+// vertex. Labels are packed int32 words, comp << L | lanes. The kernels
+// that run a warp a shot keep `sat[v]` as a bit word: bit 2o the edge to
+// v + d_o, bit 2o+1 the edge to v - d_o, bit 2O+k boundary slot k, so a
+// vertex's candidates are the set bits of one word.
 #pragma once
 
 #include <cuda_runtime.h>
 
-#include "block_reduce.cuh"
+#include <algorithm>
+#include <cstddef>
+#include <cstdint>
 
 namespace qcss {
 
@@ -19,87 +23,146 @@ constexpr int kBig = 1 << 30;
 constexpr int kMaxOffsets = 10;
 constexpr int kMaxBoundary = 4;
 constexpr int kStencilThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
+// shots (warps) a block of the whole-decode kernel
+constexpr int kMaxShotsPerBlock = 16;
+// dynamic shared memory a block may ask for, leaving room for the static
+constexpr size_t kMaxDynamicSmem = 232448 - 256;
+// The narrow edge word holds weights 0..kNarrowMaxWeight and label bits
+// below bit L <= kNarrowMaxShift (StencilGraph.kernel_words uses the same
+// limits).
+constexpr int kNarrowMaxWeight = 255;
+constexpr int kNarrowMaxShift = 23;
 
-// The stencil tables as the wrappers pass them: [3*O + 3*KB, V] int32 =
-// emask, ewt, eobs (O rows each), then bmask, bwt, bobs (KB rows each).
-struct StencilTables {
-  const int* emask;
-  const int* ewt;
-  const int* eobs;
-  const int* bmask;
-  const int* bwt;
-  const int* bobs;
+// One word per edge and boundary slot holding its presence, weight and
+// label bits. Narrow: `(wt + 1) << L | obs`, 0 for no edge. Wide: int2
+// {obs, wt or -1}.
+template <bool kWide>
+struct EdgeForm;
+
+template <>
+struct EdgeForm<false> {
+  using Word = unsigned;
+  using Sup = unsigned char;
+  __device__ static Word make(bool present, int wt, int obs, int L) {
+    return present ? ((unsigned)(wt + 1) << L) | (unsigned)obs : 0u;
+  }
+  // whether make() holds this edge exactly
+  __device__ static bool fits(bool present, int wt, int obs, int L) {
+    return L <= kNarrowMaxShift &&
+           (!present || (wt >= 0 && wt <= kNarrowMaxWeight && obs >= 0 &&
+                         obs < (1 << L)));
+  }
+  __device__ static bool present(Word w, int L) { return (w >> L) != 0u; }
+  __device__ static int weight(Word w, int L) { return (int)(w >> L) - 1; }
+  __device__ static int obs(Word w, int L) {
+    return (int)(w & ((1u << L) - 1u));
+  }
 };
 
-__device__ __forceinline__ StencilTables split_tables(const int* tab, int V,
-                                                      int O, int KB) {
-  StencilTables t;
-  t.emask = tab;
-  t.ewt = tab + O * V;
-  t.eobs = tab + 2 * O * V;
-  t.bmask = tab + 3 * O * V;
-  t.bwt = t.bmask + KB * V;
-  t.bobs = t.bwt + KB * V;
-  return t;
+template <>
+struct EdgeForm<true> {
+  using Word = int2;
+  using Sup = int;
+  __device__ static bool present(Word w, int) { return w.y >= 0; }
+  __device__ static int weight(Word w, int) { return w.y; }
+  __device__ static int obs(Word w, int) { return w.x; }
+};
+
+__host__ __device__ inline size_t align16(size_t x) {
+  return (x + 15) & ~(size_t)15;
 }
 
-// Label propagation to the fixpoint over the saturated edges, by Jacobi
-// sweeps: every sweep reads `cur` and writes `nxt`, then the two swap, so
-// on return `cur` holds the result. A vertex adopts the smallest candidate
-// among its saturated neighbours and the hub, and only if that lowers its
-// comp; the hub adopts the block-wide minimum over the saturated boundary
-// slots under the same rule.
-__device__ __forceinline__ void propagate_labels(
-    int*& cur, int*& nxt, const int* sat, const int* eobs, const int* bobs,
-    const int* deltas, int V, int O, int KB, int L, int* scratch) {
-  const int bn = V - 1;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  while (true) {
-    const int hub_val = cur[bn];
-    int changed = 0;
-    int hub_local = kBig;
-    for (int v = tid; v < V; v += nt) {
-      const int pv = cur[v];
-      const int sb = sat[v];
-      int cand = kBig;
-      for (int o = 0; o < O; ++o) {
-        const int d = deltas[o];
-        if (((sb >> o) & 1) && v + d < V)  // parent = v + d
-          cand = min(cand, cur[v + d] ^ eobs[o * V + v]);
-        if (v >= d && ((sat[v - d] >> o) & 1))  // parent = v - d
-          cand = min(cand, cur[v - d] ^ eobs[o * V + v - d]);
-      }
-      for (int k = 0; k < KB; ++k) {
-        if ((sb >> (O + k)) & 1) {
-          const int lab = bobs[k * V + v];
-          cand = min(cand, hub_val ^ lab);  // v adopts from the hub
-          hub_local = min(hub_local, pv ^ lab);  // the hub adopts from v
-        }
-      }
-      const bool adopt = (cand >> L) < (pv >> L);
-      nxt[v] = adopt ? cand : pv;
-      changed |= adopt;
+// How a persistent launch lays out a block's shared memory: the tables
+// first (when allowed and they fit beside one shot; else the kernel reads
+// them from device memory), then as many shots as fit, up to max_shots.
+// shots_per_block is 0 when one shot does not fit.
+struct Plan {
+  int shots_per_block;
+  size_t smem;
+  bool tables_in_smem;
+  size_t shot_bytes;
+};
+
+inline Plan plan_shots(size_t shot_bytes, size_t tab_bytes, bool tables_ok,
+                       int max_shots) {
+  Plan p{};
+  p.shot_bytes = shot_bytes;
+  if (shot_bytes > kMaxDynamicSmem) return p;
+  p.tables_in_smem = tables_ok && tab_bytes + shot_bytes <= kMaxDynamicSmem;
+  const size_t avail = kMaxDynamicSmem - (p.tables_in_smem ? tab_bytes : 0);
+  p.shots_per_block =
+      (int)std::min<size_t>((size_t)max_shots, avail / shot_bytes);
+  p.smem = (p.tables_in_smem ? tab_bytes : 0) +
+           (size_t)p.shots_per_block * shot_bytes;
+  return p;
+}
+
+// Stages n table words in shared memory, one pass by the whole block:
+// dst[i] = make(i). The caller syncs the block before reading them.
+template <class Word, class Make>
+__device__ __forceinline__ void stage_words(Word* dst, int n, Make make) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = make(i);
+}
+
+__device__ __forceinline__ void set_bit(unsigned* bits, int x) {
+  atomicOr(&bits[x >> 5], 1u << (x & 31));
+}
+
+// Appends the set bits of bits[0, nw) to `list` in ascending order and
+// clears them; returns how many. With `mbits`, the bits not yet in mbits
+// are also appended to `mem` (the member list, length *nm) and set there.
+// Called by the whole warp.
+__device__ __forceinline__ int compact_bits(unsigned* bits, int nw,
+                                            uint16_t* list, unsigned* mbits,
+                                            uint16_t* mem, int* nm) {
+  const int lane = threadIdx.x & 31;
+  int n = 0;
+  for (int w0 = 0; w0 < nw; w0 += 32) {
+    const int w = w0 + lane;
+    unsigned word = 0u;
+    if (w < nw) {
+      word = bits[w];
+      if (word) bits[w] = 0u;
     }
-    const int hub = block_min(hub_local, scratch);
-    const bool adopt_b = (hub >> L) < (hub_val >> L);  // same in every thread
-    if (adopt_b) {
-      if (tid == 0) nxt[bn] = hub;
-      changed = 1;
+    unsigned fresh = 0u;
+    if (mbits && word) {
+      fresh = word & ~mbits[w];
+      if (fresh) mbits[w] |= fresh;
     }
-    const int any = __syncthreads_or(changed);
-    int* t = cur;
-    cur = nxt;
-    nxt = t;
-    if (!any) break;
+    int c = __popc(word);
+    int cf = __popc(fresh);
+    int incl = c, inclf = cf;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int t = __shfl_up_sync(kFull, incl, off);
+      const int tf = __shfl_up_sync(kFull, inclf, off);
+      if (lane >= off) {
+        incl += t;
+        inclf += tf;
+      }
+    }
+    int pos = n + incl - c;
+    for (unsigned m = word; m; m &= m - 1u)
+      list[pos++] = (uint16_t)((w << 5) + __ffs(m) - 1);
+    n += __shfl_sync(kFull, incl, 31);
+    if (mbits) {
+      int posf = *nm + inclf - cf;
+      for (unsigned m = fresh; m; m &= m - 1u)
+        mem[posf++] = (uint16_t)((w << 5) + __ffs(m) - 1);
+      *nm += __shfl_sync(kFull, inclf, 31);
+    }
   }
+  __syncwarp();
+  return n;
 }
 
-// Activity OR-fixpoint: act[v] (0/1) spreads over the edges whose bit is
-// set in `pass` (bit o of pass[v]: edge (o, v) passes), in both directions,
-// until a sweep changes nothing. The closure is monotone, so the sweeps
-// update in place: whatever order the threads run in, they reach the same
-// least fixpoint as Jacobi sweeps.
+// Activity OR-fixpoint, by the whole block over one shot in shared memory:
+// act[v] (0/1) spreads over the edges whose bit is set in `pass` (bit o of
+// pass[v]: edge (o, v) passes), in both directions, until a sweep changes
+// nothing. The closure is monotone, so the sweeps update in place: whatever
+// order the threads run in, they reach the same least fixpoint as Jacobi
+// sweeps.
 __device__ __forceinline__ void spread_activity(int* act, const int* pass,
                                                 const int* deltas, int V,
                                                 int O) {
@@ -123,86 +186,6 @@ __device__ __forceinline__ void spread_activity(int* act, const int* pass,
     }
     if (!__syncthreads_or(changed)) break;
   }
-}
-
-// One delta-stepped growth step from the activity `act` and the labels
-// `cur`: every growable edge of an active cluster advances by the shot's
-// minimum slack (ceil((wt - sup) / inc) over the growing edges, at least
-// 1), so that some edge saturates. Updates sup [O, V] (then supb [KB, V]
-// behind it) and rewrites the saturation bits `sat`. Where `grew_out` is
-// not null, grew_out[v] becomes 1 if an edge or slot at v grew, else 0.
-// Returns whether anything grew in the block.
-__device__ __forceinline__ int grow_step(const int* cur, const int* act,
-                                         int* sup, int* sat,
-                                         const StencilTables& t,
-                                         const int* deltas, int V, int O,
-                                         int KB, int L, int* grew_out,
-                                         int* scratch) {
-  const int bn = V - 1;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  int* supb = sup + O * V;
-  const int hub_comp = cur[bn] >> L;
-  int local = kBig;
-  for (int v = tid; v < V; v += nt) {
-    const int comp = cur[v] >> L;
-    const int av = act[v];
-    for (int o = 0; o < O; ++o) {
-      const int idx = o * V + v;
-      const int d = deltas[o];
-      const int w = t.ewt[idx];
-      if (t.emask[idx] && sup[idx] < w) {
-        const int nb = v + d < V ? (cur[v + d] >> L) : -1;
-        if (comp != nb) {
-          const int inc = av + (v + d < V ? act[v + d] : 0);
-          if (inc > 0) local = min(local, (w - sup[idx] + inc - 1) / inc);
-        }
-      }
-    }
-    for (int k = 0; k < KB; ++k) {
-      const int idx = k * V + v;
-      const int w = t.bwt[idx];
-      if (t.bmask[idx] && supb[idx] < w && comp != hub_comp && av > 0)
-        local = min(local, w - supb[idx]);
-    }
-  }
-  const int slack = block_min(local, scratch);
-  int delta = slack > 1 ? slack : 1;
-  if (delta >= kBig) delta = 1;
-  int grew_local = 0;
-  for (int v = tid; v < V; v += nt) {
-    const int comp = cur[v] >> L;
-    const int av = act[v];
-    int bits = 0;
-    int grew_v = 0;
-    for (int o = 0; o < O; ++o) {
-      const int idx = o * V + v;
-      const int d = deltas[o];
-      const int w = t.ewt[idx];
-      if (t.emask[idx] && sup[idx] < w) {
-        const int nb = v + d < V ? (cur[v + d] >> L) : -1;
-        if (comp != nb) {
-          const int inc = av + (v + d < V ? act[v + d] : 0);
-          sup[idx] += inc * delta;
-          grew_v |= inc > 0;
-        }
-      }
-      if (t.emask[idx] && sup[idx] >= w) bits |= 1 << o;
-    }
-    for (int k = 0; k < KB; ++k) {
-      const int idx = k * V + v;
-      const int w = t.bwt[idx];
-      if (t.bmask[idx] && supb[idx] < w && comp != hub_comp) {
-        supb[idx] += av * delta;
-        grew_v |= av > 0;
-      }
-      if (t.bmask[idx] && supb[idx] >= w) bits |= 1 << (O + k);
-    }
-    sat[v] = bits;
-    if (grew_out) grew_out[v] = grew_v;
-    grew_local |= grew_v;
-  }
-  return __syncthreads_or(grew_local);
 }
 
 // Checks shared by the launchers: the limits above, and the bit word.

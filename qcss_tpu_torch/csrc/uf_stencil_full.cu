@@ -84,39 +84,8 @@ namespace {
 
 using namespace qcss;
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxShotsPerBlock = 16;
 // detector words a lane loads at once: one round trip up to V = 768
 constexpr int kLoadWords = 24;
-// dynamic shared memory a block may ask for, leaving room for the static
-constexpr size_t kMaxDynamicSmem = 232448 - 256;
-
-template <bool kWide>
-struct EdgeForm;
-
-template <>
-struct EdgeForm<false> {
-  using Word = unsigned;
-  using Sup = unsigned char;
-  __device__ static bool present(Word w, int L) { return (w >> L) != 0u; }
-  __device__ static int weight(Word w, int L) { return (int)(w >> L) - 1; }
-  __device__ static int obs(Word w, int L) {
-    return (int)(w & ((1u << L) - 1u));
-  }
-};
-
-template <>
-struct EdgeForm<true> {
-  using Word = int2;
-  using Sup = int;
-  __device__ static bool present(Word w, int) { return w.y >= 0; }
-  __device__ static int weight(Word w, int) { return w.y; }
-  __device__ static int obs(Word w, int) { return w.x; }
-};
-
-__host__ __device__ inline size_t align16(size_t x) {
-  return (x + 15) & ~(size_t)15;
-}
 
 // Byte offsets of one shot's state in shared memory.
 struct ShotLayout {
@@ -144,58 +113,6 @@ __host__ __device__ inline ShotLayout shot_layout(int V, int O, int KB,
   s.act = o;   o = align16(o + v);                        // [V] 0/1
   s.bytes = o;
   return s;
-}
-
-__device__ __forceinline__ void set_bit(unsigned* bits, int x) {
-  atomicOr(&bits[x >> 5], 1u << (x & 31));
-}
-
-// Appends the set bits of bits[0, nw) to `list` in ascending order and
-// clears them; returns how many. With `mbits`, the bits not yet in mbits
-// are also appended to `mem` (the member list, length *nm) and set there.
-// Called by the whole warp.
-__device__ __forceinline__ int compact_bits(unsigned* bits, int nw,
-                                            uint16_t* list, unsigned* mbits,
-                                            uint16_t* mem, int* nm) {
-  const int lane = threadIdx.x & 31;
-  int n = 0;
-  for (int w0 = 0; w0 < nw; w0 += 32) {
-    const int w = w0 + lane;
-    unsigned word = 0u;
-    if (w < nw) {
-      word = bits[w];
-      if (word) bits[w] = 0u;
-    }
-    unsigned fresh = 0u;
-    if (mbits && word) {
-      fresh = word & ~mbits[w];
-      if (fresh) mbits[w] |= fresh;
-    }
-    int c = __popc(word);
-    int cf = __popc(fresh);
-    int incl = c, inclf = cf;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int t = __shfl_up_sync(kFull, incl, off);
-      const int tf = __shfl_up_sync(kFull, inclf, off);
-      if (lane >= off) {
-        incl += t;
-        inclf += tf;
-      }
-    }
-    int pos = n + incl - c;
-    for (unsigned m = word; m; m &= m - 1u)
-      list[pos++] = (uint16_t)((w << 5) + __ffs(m) - 1);
-    n += __shfl_sync(kFull, incl, 31);
-    if (mbits) {
-      int posf = *nm + inclf - cf;
-      for (unsigned m = fresh; m; m &= m - 1u)
-        mem[posf++] = (uint16_t)((w << 5) + __ffs(m) - 1);
-      *nm += __shfl_sync(kFull, inclf, 31);
-    }
-  }
-  __syncwarp();
-  return n;
 }
 
 // Loads words [g, g + 32 * kLoadWords) of a shot's detector row (0 past
@@ -267,7 +184,7 @@ uf_stencil_full_kernel(const int* __restrict__ defect_in,
   size_t tab_bytes = 0;
   if (tables_in_smem) {
     Word* Es = reinterpret_cast<Word*>(smem);
-    for (int i = threadIdx.x; i < OK * V; i += blockDim.x) Es[i] = E[i];
+    stage_words(Es, OK * V, [&](int i) { return E[i]; });
     E = Es;
     tab_bytes = align16((size_t)OK * V * sizeof(Word));
   }
@@ -639,27 +556,12 @@ __global__ void any_defect_kernel(const int* __restrict__ defect,
     }
 }
 
-// How a launch is laid out; shared by the launcher and the config query.
-struct Plan {
-  int shots_per_block;
-  size_t smem;
-  bool tables_in_smem;
-  size_t shot_bytes;
-};
-
-// As many shots a block as shared memory holds, up to kMaxShotsPerBlock.
+// As many shots a block as shared memory holds, up to kMaxShotsPerBlock,
+// the edge words staged beside them when they fit.
 Plan plan_for(int V, int O, int KB, int NC, bool wide) {
-  Plan p{};
-  p.shot_bytes = shot_layout(V, O, KB, NC, wide ? 4 : 1).bytes;
-  const size_t tab = align16((size_t)(O + KB) * V * (wide ? 8 : 4));
-  if (p.shot_bytes > kMaxDynamicSmem) return p;  // shots_per_block 0
-  p.tables_in_smem = tab + p.shot_bytes <= kMaxDynamicSmem;
-  const size_t avail = kMaxDynamicSmem - (p.tables_in_smem ? tab : 0);
-  p.shots_per_block =
-      (int)std::min<size_t>(kMaxShotsPerBlock, avail / p.shot_bytes);
-  p.smem = (p.tables_in_smem ? tab : 0) +
-           (size_t)p.shots_per_block * p.shot_bytes;
-  return p;
+  return plan_shots(shot_layout(V, O, KB, NC, wide ? 4 : 1).bytes,
+                    align16((size_t)(O + KB) * V * (wide ? 8 : 4)), true,
+                    kMaxShotsPerBlock);
 }
 
 template <bool kChunks, bool kWide>

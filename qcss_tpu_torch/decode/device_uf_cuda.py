@@ -14,6 +14,10 @@ cluster's odd-parity term and convergence (`device_uf._stencil_labels`).
 and `make_round_kernel`) are the staged forms that
 `device_uf_staged`'s decodes call once or twice per growth round; their
 plain versions are `device_uf._prop_plain`, `_act_plain`, `_round_plain`.
+K3 (`stencil_prop`) and K5 (`stencil_round`) run a warp a shot over lists
+of the vertices with a saturated edge, as K1 does, and read the graph's
+int32 tables (`StencilGraph.kernel_tables`); `stencil_staged_config`
+reports their launch plans.
 
 Each shot stops on its own, so the TPU's tile picking, batch padding and
 shot sorting have no counterpart here. Every wrapper takes
@@ -140,6 +144,53 @@ def decode_stencil_cuda(dg, detectors: torch.Tensor):
     return _stencil_labels(dg, defect, *stencil_full(dg, defect))
 
 
+_STAGED_KEYS = ("shots_per_block", "smem_bytes", "form", "shot_bytes",
+                "registers", "blocks_per_sm")
+#: the forms K3 and K5 read their tables in (`qcss_stencil_staged_config`)
+_STAGED_FORMS = ("int32 tables in device memory",
+                 "label bytes in shared memory",
+                 "label words in shared memory",
+                 "narrow words in shared memory")
+
+
+def _staged_query(kernel: int, V: int, O: int, KB: int, L: int,
+                  tables: int | None = None) -> dict:
+    out = (ctypes.c_longlong * 6)()
+    _cuda.check(_cuda.load().qcss_stencil_staged_config(
+        kernel, V, O, KB, L, tables, out), "qcss_stencil_staged_config")
+    plan = dict(zip(_STAGED_KEYS, (int(x) for x in out)))
+    plan["tables_in_smem"] = plan["form"] != 0
+    plan["form"] = _STAGED_FORMS[plan["form"]]
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def _staged_plan(kernel: int, V: int, O: int, KB: int, L: int) -> dict:
+    """K3's (kernel 3) or K5's (5) launch plan at a shape."""
+    return _staged_query(kernel, V, O, KB, L)
+
+
+def stencil_staged_config(dg, kernel: str) -> dict:
+    """The launch plan of K3 (``kernel="prop"``) or K5 (``"round"``) on a
+    graph: shots (warps) per block, shared memory per block, bytes of one
+    shot's state, registers per thread, resident blocks per SM, and the
+    form the kernel reads the graph's tables in (`tables_in_smem` when it
+    stages them); K5's form is the one the kernel finds for these tables.
+    Needs the card: builds the kernels."""
+    st = dg.stencil
+    V, O, KB = dg.num_nodes + 1, len(st.deltas), st.bmask.shape[0]
+    return _staged_query({"prop": 3, "round": 5}[kernel], V, O, KB,
+                         dg.pack_shift, st.kernel_tables.data_ptr())
+
+
+def _check_fits(kernel: int, V: int, O: int, KB: int, L: int):
+    plan = _staged_plan(kernel, V, O, KB, L)
+    if plan["shots_per_block"] == 0:
+        raise ValueError(
+            f"one shot of K{kernel} needs {plan['shot_bytes']} bytes of "
+            f"shared memory at V={V}; a block has {_cuda.MAX_SHARED_BYTES}")
+
+
 def stencil_prop(dg, packed: torch.Tensor, satm: torch.Tensor,
                  satb: torch.Tensor) -> torch.Tensor:
     """Launch the propagation kernel: packed [B, V] int32, satm [B, O, V]
@@ -149,6 +200,7 @@ def stencil_prop(dg, packed: torch.Tensor, satm: torch.Tensor,
     _check_plane("packed", packed, (B, V))
     _check_plane("satm", satm, (B, O, V), torch.bool)
     _check_plane("satb", satb, (B, KB, V), torch.bool)
+    _check_fits(3, V, O, KB, dg.pack_shift)
     out = torch.empty_like(packed)
     err = _cuda.load().qcss_stencil_prop(
         packed.data_ptr(), satm.data_ptr(), satb.data_ptr(), tab.data_ptr(),
@@ -185,6 +237,7 @@ def stencil_round(dg, packed: torch.Tensor, seed: torch.Tensor,
     _check_plane("packed", packed, (B, V))
     _check_plane("seed", seed, (B, V))
     _check_plane("sup", sup, (B, O + KB, V))
+    _check_fits(5, V, O, KB, dg.pack_shift)
     out_packed = torch.empty_like(packed)
     out_sup = torch.empty_like(sup)
     grew = torch.empty_like(packed)

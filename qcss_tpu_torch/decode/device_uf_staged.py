@@ -97,3 +97,35 @@ def decode_stencil_fused(dg, detectors):
         active = bool(seed.any() & grew.any())  # the round's one host read
         i += 1
     return duf._stencil_labels(dg, defect, packed, seed)
+
+
+def round_inputs(dg, defect: torch.Tensor, rounds: int) -> list[dict]:
+    """The inputs of the staged kernels in each of the first ``rounds``
+    growth rounds of `decode_stencil_fused`, walked with the plain pieces
+    from stencil defects [B, V]: the state entering the round (``packed``,
+    ``seed``, ``sup`` [B, O+KB, V]: K5's input), K4's ``passes``, and K3's
+    masks ``satm``, ``satb`` after the round's growth step. For the kernels'
+    tests and benchmarks."""
+    B, V = defect.shape
+    O = len(dg.stencil.deltas)
+    KB = dg.stencil.bmask.shape[0]
+    packed = duf.initial_labels(dg, B, defect.device)
+    sup = torch.zeros((B, O + KB, V), dtype=torch.int32,
+                      device=defect.device)
+    seed = defect
+    out = []
+    for _ in range(rounds):
+        satm, _ = duf._saturated(dg, sup[:, :O], sup[:, O:])
+        passes = duf._cluster_passes(dg, packed, satm).contiguous()
+        act = duf._act_plain(dg, seed, passes)
+        sups, supbs, _ = duf._grow_step(dg, packed, act, sup[:, :O],
+                                        sup[:, O:])
+        satm, satb = duf._saturated(dg, sups, supbs)
+        out.append({"packed": packed, "seed": seed, "sup": sup,
+                    "passes": passes, "satm": satm.contiguous(),
+                    "satb": satb.contiguous()})
+        packed, sups, supbs, _ = duf._round_plain(dg, packed, seed,
+                                                  sup[:, :O], sup[:, O:])
+        sup = torch.cat([sups, supbs], dim=1).contiguous()
+        seed = duf.parity_seeds(dg, packed, defect)
+    return out

@@ -23,6 +23,7 @@ from qcss_tpu_torch.codes.families import rotated_surface
 from qcss_tpu_torch.decode import device_sparse as tds
 from qcss_tpu_torch.decode import device_uf as tdu
 from qcss_tpu_torch.decode.dem import circuit_level_graph, extraction_gate_list
+from qcss_tpu_torch.decode.device_uf_staged import round_inputs
 from qcss_tpu_torch.decode.uf import spacetime_graph
 
 pytestmark = pytest.mark.cuda
@@ -113,24 +114,6 @@ def test_stencil_kernel_chunk_lanes_match_plain(cuda, d, B):
     assert torch.equal(conv_k.cpu(), conv_c)
 
 
-def _round_states(dg, dets, rounds):
-    """The state entering each of the first growth rounds of the fused
-    staged decode, walked with the plain pieces: (packed, seed, sup)."""
-    defect = tdu.stencil_defect(dg, dets)
-    B, V = defect.shape
-    O = len(dg.stencil.deltas)
-    KB = dg.stencil.bmask.shape[0]
-    packed = tdu.initial_labels(dg, B, defect.device)
-    sup = torch.zeros((B, O + KB, V), dtype=torch.int32, device=defect.device)
-    seed = defect
-    for _ in range(rounds):
-        yield packed, seed, sup
-        packed, sups, supbs, _ = tdu._round_plain(dg, packed, seed,
-                                                  sup[:, :O], sup[:, O:])
-        sup = torch.cat([sups, supbs], dim=1)
-        seed = tdu.parity_seeds(dg, packed, defect)
-
-
 @pytest.mark.parametrize("kind,d,B", [("dem", 3, 1), ("dem", 5, 1000),
                                       ("spacetime", 5, 513)])
 def test_staged_kernels_match_plain(cuda, kind, d, B):
@@ -142,7 +125,8 @@ def test_staged_kernels_match_plain(cuda, kind, d, B):
     dets = _dets(g, B, 0.06, seed=d + B, device=cuda)
     before = dict(device_uf_cuda.staged_launches)
     n = 0
-    for packed, seed, sup in _round_states(dg, dets, 3):
+    for s in round_inputs(dg, tdu.stencil_defect(dg, dets), 3):
+        packed, seed, sup = s["packed"], s["seed"], s["sup"]
         n += 1
         # K5: one whole round
         got = device_uf_cuda.stencil_round(dg, packed, seed, sup)
@@ -975,3 +959,165 @@ def test_native_library_builds(cuda):
     from qcss_tpu_torch import native
 
     assert native.available(), native.load_error
+
+
+# -- K3 and K5: a warp a shot over member and frontier lists ---------------
+
+def _staged_equal(dg, packed, seed, sup, satm=None, satb=None):
+    """K5 on (packed, seed, sup) and K3 on (packed, satm, satb) against
+    their plain versions, bit for bit; K3's masks default to the
+    saturation after K5's growth (as the staged decode hands them on)."""
+    from qcss_tpu_torch.decode import device_uf_cuda
+
+    O = len(dg.stencil.deltas)
+    before = dict(device_uf_cuda.staged_launches)
+    got = device_uf_cuda.stencil_round(dg, packed, seed, sup)
+    ref = tdu._round_plain(dg, packed, seed, sup[:, :O], sup[:, O:])
+    assert torch.equal(got[0], ref[0])
+    assert torch.equal(got[1], torch.cat([ref[1], ref[2]], dim=1))
+    assert torch.equal(got[2], ref[3])
+    if satm is None:
+        satm, satb = tdu._saturated(dg, ref[1], ref[2])
+        satm, satb = satm.contiguous(), satb.contiguous()
+    out = device_uf_cuda.stencil_prop(dg, packed, satm, satb)
+    assert torch.equal(out, tdu._prop_plain(dg, packed, satm, satb))
+    after = device_uf_cuda.staged_launches
+    assert after["round"] == before["round"] + 1
+    assert after["prop"] == before["prop"] + 1
+    return ref, out
+
+
+@pytest.mark.parametrize("B", [1, 33, 777, 16384])
+def test_staged_kernels_on_the_d11_rounds(cuda, B):
+    # the states entering growth rounds 1-6 of the d=11 fused staged
+    # decode; the batch is no multiple of the shots a block but at 16384
+    from qcss_tpu_torch.decode import device_uf_cuda
+
+    g, dg = _d11_fused(2e-3)
+    dg = dg.to(cuda)
+    for kernel in ("prop", "round"):
+        plan = device_uf_cuda.stencil_staged_config(dg, kernel)
+        assert plan["shots_per_block"] > 1 and plan["tables_in_smem"]
+        assert "shared memory" in plan["form"]
+    dets = _dets(g, B, 0.02, seed=B, device=cuda)
+    grew = 0
+    for s in round_inputs(dg, tdu.stencil_defect(dg, dets), 6):
+        packed, seed, sup = s["packed"], s["seed"], s["sup"]
+        ref, _ = _staged_equal(dg, packed, seed, sup)
+        grew += int(ref[3].sum())
+    torch.cuda.synchronize()
+    assert grew > 0 or B == 1
+
+
+@pytest.mark.parametrize("change", ["none", "zero and negative weights",
+                                    "weights past the narrow word"])
+def test_staged_kernels_on_trap_states(cuda, change):
+    # whole states that no decode reaches: labels not at a fixpoint,
+    # supports past the weight, nonzero seeds other than 1, random masks,
+    # a slot holder at comp 0 (the hub's lowest offer); weights of 0 and
+    # below, and weights past 255, which the narrow word cannot hold (K5
+    # then reads the int32 tables in device memory)
+    from test_torch_staged_schedule import _trap_state
+
+    from qcss_tpu_torch.decode import device_uf_cuda
+
+    _, dg = _d11_fused(2e-3)
+    st = dg.stencil
+    ewt, bwt = st.ewt.clone(), st.bwt.clone()
+    if change == "zero and negative weights":
+        ewt[:, ::4] = 0
+        ewt[:, 2::9] = -3
+        bwt[:, 1::5] = 0
+    elif change == "weights past the narrow word":
+        ewt[:, ::5] = 300
+        bwt = bwt * 2 + 255
+    dg = dg._replace(stencil=st._replace(ewt=ewt, bwt=bwt))
+    state = [x.to(cuda) for x in _trap_state(dg, 1001, seed=23)]
+    dg = dg.to(cuda)
+    form = device_uf_cuda.stencil_staged_config(dg, "round")["form"]
+    assert ("device memory" in form) == (change != "none")
+    packed, seed, sup, satm, satb = state
+    _staged_equal(dg, packed, seed, sup, satm, satb)
+    # and the views one element past a 16-byte boundary (K5's supports
+    # then stream a word at a time)
+    views = []
+    for x in (packed, seed, sup, satm, satb):
+        flat = torch.zeros(x.numel() + 1, dtype=x.dtype, device=cuda)
+        views.append(flat[1:].view(x.shape))
+        views[-1].copy_(x)
+    _staged_equal(dg, *views)
+
+
+def test_staged_kernels_on_the_parallel_window_interior(cuda):
+    # the largest graph K1's plan takes (V=2581, O=4, KB=3; the wrappers
+    # and the plain versions ignore its chunk lanes): labels only
+    from qcss_tpu_torch.decode import device_uf_cuda
+    from qcss_tpu_torch.decode.parallel_window import ParallelWindowDecoder
+
+    code = rotated_surface(11)
+    dec = ParallelWindowDecoder(code.raw_parity_check_c2,
+                                code.z_operator_matrix(), core=11, buf=16,
+                                device=cuda)
+    mid = dec._mid
+    assert mid.num_nodes + 1 == 2581
+    for kernel in ("prop", "round"):
+        assert device_uf_cuda.stencil_staged_config(
+            mid, kernel)["shots_per_block"] >= 1
+    rng = np.random.default_rng(4)
+    dets = torch.as_tensor((rng.random((513, mid.num_nodes)) < 0.01)
+                           .astype(np.uint8), device=cuda)
+    for s in round_inputs(mid, tdu.stencil_defect(mid, dets), 3):
+        packed, seed, sup = s["packed"], s["seed"], s["sup"]
+        _staged_equal(mid, packed, seed, sup)
+
+
+def _synthetic_graph(V, O, KB, seed, L=2):
+    """A stencil graph at the staged kernels' limits of O and KB, with
+    random weights and L label bits."""
+    rng = np.random.default_rng(seed)
+    deltas = sorted(rng.choice(np.arange(1, 200), O, replace=False))
+    emask = rng.random((O, V)) < 0.6
+    for o, d in enumerate(deltas):
+        emask[o, V - 1 - d:] = False  # no edge past the last vertex
+    emask[:, V - 1] = False
+    bmask = rng.random((KB, V)) < 0.3
+    bmask[:, V - 1] = False
+    return tdu.device_graph_from_numpy(
+        deltas=deltas, emask=emask,
+        ewt=rng.integers(1, 12, (O, V)), eobs=rng.integers(0, 1 << L, (O, V)),
+        bmask=bmask, bwt=rng.integers(1, 12, (KB, V)),
+        bobs=rng.integers(0, 1 << L, (KB, V)), pack_shift=L,
+        lane_offsets=(0,), lane_masks=((1 << L) - 1,), num_nodes=V - 1,
+        max_rounds=V)
+
+
+@pytest.mark.parametrize("V,L,form", [
+    (8000, 2, "int32 tables in device memory"),
+    (4000, 2, "label bytes in shared memory"),
+    (500, 12, "label words in shared memory")])
+def test_staged_kernels_at_the_shape_limits(cuda, V, L, form):
+    # O=10 and KB=4, at Vs whose tables do not fit beside a shot (both
+    # kernels read them in device memory at V=8000, K5 at 4000), and at
+    # L > 8 (K3 stages its label bits as int32); then at a V where one shot
+    # of each does not fit a block: the wrappers raise, nothing falls back
+    from qcss_tpu_torch.decode import device_uf_cuda
+
+    dg = _synthetic_graph(V, 10, 4, seed=1, L=L).to(cuda)
+    assert device_uf_cuda.stencil_staged_config(dg, "prop")["form"] == form
+    assert device_uf_cuda.stencil_staged_config(
+        dg, "round")["tables_in_smem"] == (V == 500)
+    rng = np.random.default_rng(2)
+    dets = torch.as_tensor((rng.random((65, V - 1)) < 0.02).astype(np.uint8),
+                           device=cuda)
+    for s in round_inputs(dg, tdu.stencil_defect(dg, dets), 3):
+        packed, seed, sup = s["packed"], s["seed"], s["sup"]
+        _staged_equal(dg, packed, seed, sup)
+    big = _synthetic_graph(20000, 2, 1, seed=3).to(cuda)
+    packed = tdu.initial_labels(big, 2, cuda)
+    sup = torch.zeros((2, 3, 20000), dtype=torch.int32, device=cuda)
+    masks = torch.zeros((2, 3, 20000), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        device_uf_cuda.stencil_round(big, packed, packed, sup)
+    with pytest.raises(ValueError, match="shared memory"):
+        device_uf_cuda.stencil_prop(big, packed, masks[:, :2].contiguous(),
+                                    masks[:, 2:].contiguous())
