@@ -36,8 +36,10 @@ the stencil kernel:
    then K1 on graphs with spilled lanes (the d=11 mid-window graphs of
    the streaming decoder, phenomenological and circuit-level: packed,
    activity, every chunk plane, every lane and convergence), K3, K4 and
-   K5 on the state entering growth rounds 1 to 3 of the d=11 decode, the
-   two staged decodes against K1's labels, and the generic packed and
+   K5 on the state entering growth rounds 1 to 3 of the d=11 decode, K4
+   also on a trap state (act values 2 and -1, passes on edges past the
+   last vertex), the two staged decodes against K1's labels, and the
+   generic packed and
    unpacked decoders on the card against the CPU;
 6. main path 1: `memory_experiment(..., decoder="device-dem",
    engine="frames", batch=16384, device="cuda")` and the fused dense,
@@ -95,10 +97,11 @@ the stencil kernel:
    (event searches, mask builds) a walk of its plain version counts; K3,
    K4 and K5 through `benchmarks/staged_bench.py` (a launch of the bare
    entry point in a CUDA graph at B=16384 on the state entering round 2,
-   the wrapper beside it) with K3's and K5's launch plans (shots a block,
-   shared memory, registers, the tables' form); prints K1's launch plan (shots a
-   block, shared memory, registers) and the work its data need at its
-   three shapes, the parallel window's d=11 interior window the third
+   the wrapper beside it, and a copy_ of as many bytes as each kernel's
+   interface moves) with K3's, K4's and K5's launch plans (shots a block,
+   shared memory, registers, the tables' form); prints K1's launch plan
+   (shots a block, shared memory, registers) and the work its data need at
+   its three shapes, the parallel window's d=11 interior window the third
    (shots running, live vertices and sweeps per round,
    counted with the plain version on the card; the bound counts those
    candidate reads); times K7 alone and through its wrapper at every
@@ -944,8 +947,25 @@ def main() -> int:
             raise RuntimeError(
                 f"a staged kernel disagrees with its plain version at round "
                 f"{rnd} (max abs err K3 {k3_err}, K4 {k4_err}, K5 {k5_err})")
+    # K4 on a trap state no decode hands it: act values 2 and -1 (the
+    # output is 0/1), and a pass on every offset's edges past the last
+    # vertex (dropped, as the plain version's shifts drop them)
+    trap_act = state["seed"].clone()
+    trap_act[::3, ::7] = 2
+    trap_act[1::3, 3::11] = -1
+    trap_pass = state["passes"].clone()
+    for o, dlt in enumerate(st.deltas):
+        trap_pass[:, o, defect.shape[1] - dlt:] = True
+    k4_trap = device_uf_cuda.stencil_act(dg, trap_act, trap_pass)
+    k4_err = max(k4_err, max_abs(k4_trap,
+                                 duf._act_plain(dg, trap_act, trap_pass)))
+    torch.cuda.synchronize()
+    if k4_err or int(k4_trap.max()) != 1 or int(k4_trap.min()) != 0:
+        raise RuntimeError(f"K4 disagrees with its plain version on the trap "
+                           f"state (max abs err {k4_err})")
     log(f"K3 prop, K4 act, K5 round == plain versions on the state entering "
-        f"rounds 1-3 of {CHECK_ROWS} rows")
+        f"rounds 1-3 of {CHECK_ROWS} rows; K4 also on a trap state (act "
+        f"values 2 and -1, passes past the last vertex)")
     for fn in (dstaged.decode_stencil_staged, dstaged.decode_stencil_fused):
         lab_s, conv_s_ = fn(dg, dets)
         if not (torch.equal(lab_s[0], lab_k[0])
@@ -1263,8 +1283,12 @@ def main() -> int:
     # input exceeds the L2), the wrapper back to back beside it, and the
     # bound from the bytes the function needs (int32 planes for labels and
     # supports, one byte an element for every 0/1 plane, the tables each
-    # kernel reads); K3's and K5's launch plans
+    # kernel reads) and, as a yardstick of the memory rate, a copy_ moving
+    # as many bytes as the kernel's C interface; K3's, K4's and K5's launch
+    # plans
     staged_plans = staged_bench.plans(dg)
+    if sorted(staged_plans) != ["K3", "K4", "K5"]:
+        raise RuntimeError(f"staged launch plans missing: {staged_plans}")
     for key, plan in staged_plans.items():
         log(f"{key} plan at V={V1}: {plan['shots_per_block']} shots (warps) "
             f"a block, {plan['smem_bytes']} B shared ({plan['shot_bytes']} a "
@@ -1277,13 +1301,14 @@ def main() -> int:
         key = row["kernel"]
         staged[key] = {k: row[k] for k in (
             "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")}
-        if key in staged_plans:
-            staged[key]["plan"] = staged_plans[key]
+            "library_ms", "io_bytes", "copy_ms")}
+        staged[key]["plan"] = staged_plans[key]
         log(f"{key} B={BATCH} on round-2 state: a launch in a graph "
             f"{row['ms']:.4f} ms (wrapper {row['wrapper_ms']:.4f}; == plain), "
             f"plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}): {row['ms'] / row['bound_ms']:.2f}x")
+            f"({row['bound_by']}): {row['ms'] / row['bound_ms']:.2f}x; a "
+            f"copy_ of its {row['io_bytes']} interface bytes "
+            f"{row['copy_ms']:.4f} ms")
 
     # Integer operations counted per (shot, check row): one LOP3 per word
     # for acc ^= e & h, a popcount, and one or two to place the bit (K6:

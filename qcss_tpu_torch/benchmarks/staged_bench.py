@@ -17,21 +17,26 @@ rounds 1-6 of the fused staged decode are walked with the plain pieces
 * ``plain_ms`` (round 2 only): the plain version (`device_uf._prop_plain`,
   `_act_plain`, `_round_plain`); no single PyTorch call computes any of
   the three (``library_ms`` null);
+* ``copy_ms`` (round 2 only): a yardstick of the memory rate, one
+  `Tensor.copy_` from a CUDA graph that moves as many bytes as the
+  kernel's C interface reads and writes (``io_bytes``: its planes as they
+  are, int32 where the bound counts a byte; half of them read, half
+  written);
 
 beside the bound (`profiling.bound`): each input byte read once and each
 output byte written once at 3.35 TB/s, int32 planes for labels and
 supports, one byte an element for every 0/1 plane (K3's and K4's masks,
-K4's act, K5's seed and grew), and the tables each kernel reads. K4 is
-the control: this script's kernels K3 and K5 were redesigned, K4 was not.
-Each kernel's output is held against its plain version first, and the
-launch plans of K3 and K5 are printed where the checkout reports them.
+K4's act, K5's seed and grew), and the tables each kernel reads. K3 and
+K5 are the controls when K4 changes. Each kernel's output is held against
+its plain version first, and the launch plans of K3, K4 and K5 are
+printed where the checkout reports them.
 
 Then each whole decode (`decode_stencil_staged`: K3 and K4 a round;
 `decode_stencil_fused`: K5 a round), host-fenced, against K1's labels.
 
 ``--phases`` builds `csrc/uf_stencil_staged.cu` alone again with
-QCSS_STAGED_PHASES (clock counters at the phase boundaries of K3 and K5:
-lane 0 of every warp adds each phase's cycles to a device counter) into
+QCSS_STAGED_PHASES (clock counters at the phase boundaries of K3, K4 and
+K5: lane 0 of every warp adds each phase's cycles to a device counter) into
 `build/cuda-phases/` and reports cycles a shot in each phase on the
 round-2 state.
 
@@ -74,9 +79,11 @@ ROUNDS = 11
 BATCH = 16384
 SEED = 1234
 STAGED_ROUNDS = 6
-#: K3's and K5's phases, by the index of their clock counter
+#: K3's, K4's and K5's phases, by the index of their clock counter
 PHASES = {"K3": {0: "label row in", 1: "masks in, folded; members",
                  2: "propagation", 3: "labels out, reset"},
+          "K4": {4: "act row and pass bytes in, folded",
+                 5: "frontier", 6: "spread", 7: "row out, reset"},
           "K5": {8: "label and seed rows in",
                  9: "supports through, folded", 10: "members, activity",
                  11: "growth, grew row out", 12: "propagation",
@@ -102,8 +109,9 @@ def setup(dev, batch: int = BATCH):
 
 
 def _kernels(dg, s, lib=None):
-    """Per kernel: (bare launch, wrapper call, plain call, bytes); the bare
-    launches call ``lib``'s entry points (default: the package's build)."""
+    """Per kernel: (bare launch, wrapper call, plain call, bytes of the
+    bound, bytes its interface moves); the bare launches call ``lib``'s
+    entry points (default: the package's build)."""
     lib = lib or _cuda.load()
     st = dg.stencil
     B, V = s["packed"].shape
@@ -146,19 +154,23 @@ def _kernels(dg, s, lib=None):
         r = duf._round_plain(dg, packed, seed, sup[:, :O], sup[:, O:])
         return r[0], torch.cat([r[1], r[2]], dim=1), r[3]
 
+    def io(*xs):
+        return sum(x.numel() * x.element_size() for x in xs)
+
     return {
         "K3": (k3, lambda: device_uf_cuda.stencil_prop(dg, packed, satm,
                                                        satb),
                lambda: duf._prop_plain(dg, packed, satm, satb),
-               2 * plane + (O + KB) * flags + 4 * ((O + KB) * V + O)),
+               2 * plane + (O + KB) * flags + 4 * ((O + KB) * V + O),
+               io(packed, satm, satb, o3)),
         "K4": (k4, lambda: device_uf_cuda.stencil_act(dg, seed, passes),
                lambda: duf._act_plain(dg, seed, passes),
-               (2 + O) * flags + 4 * O),
+               (2 + O) * flags + 4 * O, io(seed, passes, o4)),
         "K5": (k5, lambda: device_uf_cuda.stencil_round(dg, packed, seed,
                                                         sup),
                k5_plain,
                (2 + 2 * (O + KB)) * plane + 2 * flags
-               + 4 * (tab.numel() + O)),
+               + 4 * (tab.numel() + O), io(packed, seed, sup, *o5)),
     }
 
 
@@ -170,22 +182,38 @@ def _max_abs(a, b) -> int:
 
 
 def plans(dg) -> dict:
-    """K3's and K5's launch plans, where the checkout reports them."""
+    """The staged kernels' launch plans, those the checkout reports (an
+    older one may report K3's and K5's, or none)."""
     if not hasattr(device_uf_cuda, "stencil_staged_config"):
         return {}
-    return {"K3": device_uf_cuda.stencil_staged_config(dg, "prop"),
-            "K5": device_uf_cuda.stencil_staged_config(dg, "round")}
+    out = {}
+    for key, kernel in (("K3", "prop"), ("K4", "act"), ("K5", "round")):
+        try:
+            out[key] = device_uf_cuda.stencil_staged_config(dg, kernel)
+        except KeyError:  # an older checkout has no plan of K4
+            pass
+    return out
+
+
+def copy_ms(nbytes: int, reps: int) -> float:
+    """Device ms of one `Tensor.copy_` that reads nbytes / 2 and writes as
+    many, a launch from a CUDA graph."""
+    src = torch.zeros(nbytes // 2, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    dst.copy_(src)
+    return graph_ms([lambda: dst.copy_(src)], reps)
 
 
 def kernel_rows(dg, dets, reps: int = 20,
                 rounds: int = STAGED_ROUNDS) -> list[dict]:
     """One row per (kernel, round): graph and wrapper times, the bound,
-    and (round 2) the plain version's time; each output held against the
-    plain version."""
+    and (round 2) the plain version's time and the copy yardstick; each
+    output held against the plain version."""
     defect = duf.stencil_defect(dg, dets)
     rows = []
     for rnd, s in enumerate(dstaged.round_inputs(dg, defect, rounds), 1):
-        for name, (bare, wrap, plain, nbytes) in _kernels(dg, s).items():
+        for name, (bare, wrap, plain, nbytes, io_bytes) in \
+                _kernels(dg, s).items():
             err = _max_abs(bare(), plain())
             if err or _max_abs(wrap(), plain()):
                 raise RuntimeError(f"{name} disagrees with its plain "
@@ -198,7 +226,9 @@ def kernel_rows(dg, dets, reps: int = 20,
                 "wrapper_ms": cuda_ms(wrap, reps),
                 "plain_ms": cuda_ms(plain, 2) if rnd == 2 else None,
                 "library_ms": None, "bound_ms": bound_ms,
-                "bound_by": bound_by, "bytes": nbytes, "max_abs_err": err})
+                "bound_by": bound_by, "bytes": nbytes, "io_bytes": io_bytes,
+                "copy_ms": copy_ms(io_bytes, reps) if rnd == 2 else None,
+                "max_abs_err": err})
     return rows
 
 
@@ -261,7 +291,7 @@ def build_phases() -> ctypes.CDLL:
 
 
 def phase_rows(dg, dets) -> list[dict]:
-    """Clock cycles a shot in each phase of K3 and K5 (a build with
+    """Clock cycles a shot in each phase of K3, K4 and K5 (a build with
     QCSS_STAGED_PHASES), one launch each on the round-2 state."""
     s = dstaged.round_inputs(dg, duf.stencil_defect(dg, dets), 2)[1]
     lib = build_phases()
@@ -295,7 +325,7 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--phases", action="store_true",
-                    help="also count K3's and K5's cycles by phase")
+                    help="also count the kernels' cycles by phase")
     args = ap.parse_args()
     dg, dets = setup(torch.device("cuda"))
     out = run(args.reps, dg, dets)

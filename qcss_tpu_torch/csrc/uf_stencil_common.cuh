@@ -22,7 +22,6 @@ namespace qcss {
 constexpr int kBig = 1 << 30;
 constexpr int kMaxOffsets = 10;
 constexpr int kMaxBoundary = 4;
-constexpr int kStencilThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
 // shots (warps) a block of the whole-decode kernel
 constexpr int kMaxShotsPerBlock = 16;
@@ -155,37 +154,6 @@ __device__ __forceinline__ int compact_bits(unsigned* bits, int nw,
   }
   __syncwarp();
   return n;
-}
-
-// Activity OR-fixpoint, by the whole block over one shot in shared memory:
-// act[v] (0/1) spreads over the edges whose bit is set in `pass` (bit o of
-// pass[v]: edge (o, v) passes), in both directions, until a sweep changes
-// nothing. The closure is monotone, so the sweeps update in place: whatever
-// order the threads run in, they reach the same least fixpoint as Jacobi
-// sweeps.
-__device__ __forceinline__ void spread_activity(int* act, const int* pass,
-                                                const int* deltas, int V,
-                                                int O) {
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  while (true) {
-    int changed = 0;
-    for (int v = tid; v < V; v += nt) {
-      if (act[v]) continue;
-      const int pb = pass[v];
-      int a = 0;
-      for (int o = 0; o < O; ++o) {
-        const int d = deltas[o];
-        if (((pb >> o) & 1) && v + d < V) a |= act[v + d];
-        if (v >= d && ((pass[v - d] >> o) & 1)) a |= act[v - d];
-      }
-      if (a) {
-        act[v] = 1;
-        changed = 1;
-      }
-    }
-    if (!__syncthreads_or(changed)) break;
-  }
 }
 
 // Checks shared by the launchers: the limits above, and the bit word.

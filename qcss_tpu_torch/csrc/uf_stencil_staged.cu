@@ -13,12 +13,11 @@
 // What bounds them on this card: each launch moves whole [B, V] planes —
 //   K3 reads V label words and (O+KB)V mask bytes and writes V words; K5
 //   reads and writes (2+O+KB)V words (seed and grew included); K4 reads V
-//   words and O*V mask bytes and writes V words — while the work a shot
+//   words and O*V pass bytes and writes V words — while the work a shot
 //   needs is small: at d=11 only 2-4% of the vertices have a saturated
-//   edge. K3 and K5 run a warp a shot over lists of those vertices, so
-//   device memory sets their time as long as enough shots stream at once
-//   to hide each shot's chain of dependent steps. K4 still sweeps the
-//   whole graph, one block a shot, with a block barrier a sweep.
+//   edge. Each runs a warp a shot over lists of those vertices, so device
+//   memory sets its time as long as enough shots stream at once to hide
+//   each shot's chain of dependent steps.
 //
 // Design of K3 and K5 (K1's, uf_stencil_full.cu, applied to whole states):
 //   * a warp a shot, as many shots a block as shared memory holds (up to
@@ -58,8 +57,32 @@
 //     min; the grown edges' supports are rewritten in out_sup (the warp
 //     wrote the plane; __syncwarp orders the writes), unclamped as the
 //     plain version leaves them; `grew` is a bit set, written as a row.
-// K4 (one block a shot, the block-wide sweeps of spread_activity) is as
-// before.
+//
+// Design of K4 (the same scheme on its smaller state, no tables):
+//   * a warp a shot, 16 shots a block, two blocks an SM (its registers:
+//     kActBlocks in the launch bounds), persistent blocks; a shot's state
+//     is V pass words, the act and mark bit sets and a 16-bit frontier
+//     list (~6.3 bytes a vertex);
+//   * the act row and then the pass bytes (one contiguous O*V run) read
+//     as one sequence of the 16-byte granules that cover them, 3 a lane a
+//     batch, each next batch's loads issued before the current one is
+//     folded, and the next shot's first batch before this shot's spread:
+//     the fold and the spread overlap round trips. Every nonzero act word
+//     is a seed; all-zero pass granules cost a test, and each set byte
+//     (o, v) of the others is folded into the pass words of v and v + d_o
+//     (one division a granule). Folding a granule's bytes in one lane
+//     while the next batch's loads wait made the shots with passes 10-30%
+//     slower, and no other form tried was faster (deeper batches, three
+//     blocks an SM at 40 registers, the next shot asked of L2, a TMA ring
+//     of bulk copies into shared memory);
+//   * the spread breadth first from the seeds: a frontier list a step
+//     (compact_bits), a vertex activated once, by the lane whose atomicOr
+//     set its bit. Each passing edge is looked at from its active end
+//     only, so a shot costs its active vertices' edges, not V a sweep;
+//   * the row out as 0/1 words (the plain version returns act != 0); then
+//     the pass words cleared whole in 16-byte stores, which at d=11 costs
+//     less than keeping a member bit set (two more shared atomics a set
+//     byte, all of a granule's on one word), and the act bits.
 
 #include <cuda_runtime.h>
 
@@ -74,17 +97,22 @@ namespace {
 using namespace qcss;
 
 // 16-byte granules a lane has in flight at once, per kernel: more only
-// queue in the L1 that shared memory leaves
+// queue in the L1 that shared memory leaves (K4 keeps two batches of
+// kActLoad in registers: at 4 it is out of them)
 constexpr int kPropLoad = 3;
 constexpr int kRoundLoad = 2;
+constexpr int kActLoad = 3;
 // shots (warps) a block: K3's registers let 20 share an SM, K5's 16
 constexpr int kPropShots = 20;
 constexpr int kRoundShots = 16;
+// K4: shots (warps) a block and blocks an SM its launch bounds ask for
+constexpr int kActShots = 16;
+constexpr int kActBlocks = 2;
 
 // Where a shot's time goes: with QCSS_STAGED_PHASES defined (only
 // `staged_bench --phases` builds it), lane 0 of every warp adds the clock
-// cycles of each phase of its shots to phase_cycles: K3's phases 0-3, K5's
-// 8-13 (qcss_stencil_phases reads and clears them).
+// cycles of each phase of its shots to phase_cycles: K3's phases 0-3, K4's
+// 4-7, K5's 8-13 (qcss_stencil_phases reads and clears them).
 #ifdef QCSS_STAGED_PHASES
 __device__ unsigned long long phase_cycles[16];
 #define PHASE_START long long phase_t0 = clock64()
@@ -121,6 +149,24 @@ __host__ __device__ inline ShotLayout shot_layout(int V, bool round) {
   s.mark = o;  o = align16(o + 4 * nw);                   // frontier bits
   s.grew = o;  o = round ? align16(o + 4 * nw) : o;       // grew bits
   s.act = o;   o = round ? align16(o + v) : o;            // [V] 0/1
+  s.bytes = o;
+  return s;
+}
+
+// Byte offsets of one shot's state of K4 in shared memory.
+struct ActLayout {
+  size_t pass, act, mark, fr, bytes;
+};
+
+__host__ __device__ inline ActLayout act_layout(int V) {
+  const size_t v = (size_t)V;
+  const size_t nw = (size_t)(V + 31) / 32;
+  ActLayout s;
+  size_t o = 0;
+  s.pass = o;  o = align16(o + 4 * v);                    // [V] pass bits
+  s.act = o;   o = align16(o + 4 * nw);                   // act bits
+  s.mark = o;  o = align16(o + 4 * nw);                   // frontier bits
+  s.fr = o;    o = align16(o + 2 * v);                    // frontier list
   s.bytes = o;
   return s;
 }
@@ -332,6 +378,93 @@ __device__ __forceinline__ void stream_flags(
           b &= ~(0xffu << (8 * byte));
         }
     }
+  }
+}
+
+// K4's input of one shot as one sequence of 16-byte granules: the ones
+// that cover its act row (V words), then the ones that cover its pass
+// bytes (O*V), each run read from its own 16-byte aligned start.
+struct ShotRun {
+  const int4* a4;
+  const int4* p4;
+  int ha, hp;  // words (act) and bytes (passes) before each run's start
+  long long ma, m;
+  __device__ ShotRun(const int* a, int V, const unsigned char* p, int OV) {
+    ha = (int)(((uintptr_t)a & 15) >> 2);
+    a4 = reinterpret_cast<const int4*>(a - ha);
+    ma = (ha + (long long)V + 3) >> 2;
+    hp = (int)((uintptr_t)p & 15);
+    p4 = reinterpret_cast<const int4*>(p - hp);
+    m = ma + ((hp + (long long)OV + 15) >> 4);
+  }
+  // this lane's kLoad granules of the batch that starts at granule g
+  template <int kLoad>
+  __device__ __forceinline__ void load(long long g, int4* z) const {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int k = 0; k < kLoad; ++k) {
+      const long long i = g + 32 * k + lane;
+      z[k] = i < ma  ? load16(a4 + i)
+             : i < m ? load16(p4 + (i - ma))
+                     : make_int4(0, 0, 0, 0);
+    }
+  }
+};
+
+// The whole warp streams shot r's run, kLoad granules a lane a batch, its
+// first batch already loaded into x: each next batch's loads are issued
+// before the current batch is folded, so a fold overlaps the next round
+// trip, and after the last batch the next shot's first (when has_next) is
+// loaded into x, in flight while this shot's spread and row out run.
+// fa(j) for every nonzero act word j; fp(o, v) for every set pass byte
+// (o, v), found from one division a nonzero granule; all-zero granules
+// cost a test.
+template <int kLoad, class FA, class FP>
+__device__ __forceinline__ void stream_shot(const ShotRun& r,
+                                            const ShotRun& next,
+                                            bool has_next, int4* x, int V,
+                                            int OV, FA fa, FP fp) {
+  const int lane = threadIdx.x & 31;
+  constexpr int kBatch = 32 * kLoad;
+  int4 y[kLoad];
+  for (long long g = 0; g < r.m; g += kBatch) {
+    if (g + kBatch < r.m)
+      r.load<kLoad>(g + kBatch, y);
+    else if (has_next)
+      next.load<kLoad>(0, y);
+#pragma unroll
+    for (int k = 0; k < kLoad; ++k) {
+      const long long i = g + 32 * k + lane;
+      const unsigned w[4] = {(unsigned)x[k].x, (unsigned)x[k].y,
+                             (unsigned)x[k].z, (unsigned)x[k].w};
+      if (!(w[0] | w[1] | w[2] | w[3]) || i >= r.m) continue;
+      if (i < r.ma) {
+        const long long j = 4 * i - r.ha;
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (w[c] && j + c >= 0 && j + c < V) fa((int)(j + c));
+        continue;
+      }
+      const long long j0 = 16 * (i - r.ma) - r.hp;  // the granule's byte 0
+      const int b0 = j0 < 0 ? (int)-j0 : 0;          // its first in the run
+      const int o0 = (int)(j0 + b0) / V;
+      const int v0 = (int)(j0 + b0) - o0 * V;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        for (unsigned b = w[q]; b;) {
+          const int off = 4 * q + ((__ffs(b) - 1) >> 3);
+          b &= ~(0xffu << (8 * (off & 3)));
+          if (off < b0 || j0 + off >= OV) continue;
+          int o = o0, v = v0 + off - b0;
+          while (v >= V) {  // a granule may span rows
+            v -= V;
+            ++o;
+          }
+          fp(o, v);
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < kLoad; ++k) x[k] = y[k];
   }
 }
 
@@ -591,34 +724,110 @@ uf_stencil_prop_kernel(const int* __restrict__ packed_in,
                lay, out);
 }
 
-// K4. act [B, V] int32 0/1, passes [B, O, V] bytes (0/1) -> out [B, V]
-// int32.
-__global__ void __launch_bounds__(kStencilThreads)
+// K4. act [B, V] int32 (any nonzero word active), passes [B, O, V] bytes
+// (0/1) -> out [B, V] int32 0/1. A shot a warp: the act row's nonzero
+// words are the seeds (act and mark bits); the set pass bytes (stream_shot)
+// fold into pass words (bit 2o the edge to v + d_o, 2o+1 the edge to
+// v - d_o; a pass with no vertex at v + d_o is dropped, as the plain
+// version's shifts drop it); activity then spreads from the seeds breadth
+// first, a frontier list a step, each newly active vertex claimed by the
+// lane whose atomicOr set its bit. The OR-closure is unique, so the order
+// is free. Out as 0/1 words; the pass words and act bits are cleared
+// between shots (the mark bits are clear after the last step).
+__global__ void __launch_bounds__(kActShots * 32, kActBlocks)
 uf_stencil_act_kernel(const int* __restrict__ act_in,
                       const unsigned char* __restrict__ passes,
-                      const int* __restrict__ deltas_in, int V, int O,
-                      int* __restrict__ out) {
-  extern __shared__ int smem_act[];
+                      const int* __restrict__ deltas_in, long long B, int V,
+                      int O, int* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int deltas[kMaxOffsets];
-  int* act = smem_act;
-  int* pass = act + V;
 
-  const long long shot = blockIdx.x;
-  const long long row = shot * V;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-
-  if (tid < O) deltas[tid] = deltas_in[tid];
-  for (int v = tid; v < V; v += nt) {
-    act[v] = act_in[row + v] != 0;
-    int bits = 0;
-    for (int o = 0; o < O; ++o)
-      if (passes[(shot * O + o) * V + v]) bits |= 1 << o;
-    pass[v] = bits;
-  }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int OV = O * V;
+  const int nw = (V + 31) >> 5;
+  if (threadIdx.x < O) deltas[threadIdx.x] = deltas_in[threadIdx.x];
   __syncthreads();
-  spread_activity(act, pass, deltas, V, O);
-  for (int v = tid; v < V; v += nt) out[row + v] = act[v];
+
+  // -- this warp's shot state; pass words and bit sets are clean between
+  //    shots
+  const ActLayout lay = act_layout(V);
+  unsigned char* base = smem + (size_t)warp * lay.bytes;
+  unsigned* pass = reinterpret_cast<unsigned*>(base + lay.pass);
+  unsigned* act = reinterpret_cast<unsigned*>(base + lay.act);
+  unsigned* mark = reinterpret_cast<unsigned*>(base + lay.mark);
+  uint16_t* fr = reinterpret_cast<uint16_t*>(base + lay.fr);
+  uint4* pass4 = reinterpret_cast<uint4*>(pass);
+  for (int i = lane; i < (V + 3) >> 2; i += 32)
+    pass4[i] = make_uint4(0u, 0u, 0u, 0u);
+  for (int w = lane; w < nw; w += 32) act[w] = mark[w] = 0u;
+  __syncwarp();
+
+  // -- the warp's first shot's first batch in flight
+  const long long stride = (long long)gridDim.x * nwarps;
+  const long long first = (long long)blockIdx.x * nwarps + warp;
+  int4 x[kActLoad];
+  if (first < B)
+    ShotRun(act_in + first * V, V, passes + first * OV, OV)
+        .load<kActLoad>(0, x);
+  for (long long shot = first; shot < B; shot += stride) {
+    const long long row = shot * V;
+    const long long nx = shot + stride < B ? shot + stride : shot;
+    PHASE_START;
+    // -- the act row (every nonzero word a seed: the first frontier) and
+    //    the pass bytes, folded into pass words
+    stream_shot<kActLoad>(
+        ShotRun(act_in + row, V, passes + shot * OV, OV),
+        ShotRun(act_in + nx * V, V, passes + nx * OV, OV), nx != shot, x,
+        V, OV,
+        [&](int j) {
+          set_bit(act, j);
+          set_bit(mark, j);
+        },
+        [&](int o, int v) {
+          const int d = deltas[o];
+          if (v + d < V) {
+            atomicOr(&pass[v], 1u << (2 * o));
+            atomicOr(&pass[v + d], 1u << (2 * o + 1));
+          }
+        });
+    PHASE(4);
+    __syncwarp();
+    int nF = compact_bits(mark, nw, fr, nullptr, nullptr, nullptr);
+    PHASE(5);
+
+    // -- the spread, a frontier a step: the inactive ends of a frontier
+    //    vertex's passing edges become active and form the next frontier
+    while (nF > 0) {
+      for (int i = lane; i < nF; i += 32) {
+        const int u = fr[i];
+        for (unsigned m = pass[u]; m; m &= m - 1u) {
+          const int b = __ffs(m) - 1;
+          const int d = deltas[b >> 1];
+          const int w = (b & 1) ? u - d : u + d;
+          const unsigned bit = 1u << (w & 31);
+          if (!(act[w >> 5] & bit) && !(atomicOr(&act[w >> 5], bit) & bit))
+            set_bit(mark, w);
+        }
+      }
+      __syncwarp();
+      nF = compact_bits(mark, nw, fr, nullptr, nullptr, nullptr);
+    }
+    PHASE(6);
+
+    write_words(out + row, V, [&](long long j) {
+      return (int)((act[j >> 5] >> (j & 31)) & 1u);
+    });
+    __syncwarp();
+    // -- leave the state clean: the pass words (all of them, in 16-byte
+    //    stores: cheaper than a member bit set a pass byte), the act bits
+    for (int i = lane; i < (V + 3) >> 2; i += 32)
+      pass4[i] = make_uint4(0u, 0u, 0u, 0u);
+    for (int w = lane; w < nw; w += 32) act[w] = 0u;
+    __syncwarp();
+    PHASE(7);
+  }
 }
 
 // One growth round of the warp's shots (K5's body), with the tables in
@@ -918,14 +1127,7 @@ uf_stencil_round_kernel(const int* __restrict__ packed_in,
                 least, vec, base, lay, out_packed, out_sup, out_grew);
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(kernel),
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
-// The launch plans of K3 and K5: the tables staged when they fit beside
+// The launch plans of K3, K5 and K4: the tables staged when they fit beside
 // one shot (K3's label bits a byte an edge and slot when L <= 8, else an
 // int32; K5's narrow words only when L allows them).
 Plan plan_prop(int V, int O, int KB, int L) {
@@ -938,6 +1140,11 @@ Plan plan_round(int V, int O, int KB, int L) {
   return plan_shots(shot_layout(V, true).bytes,
                     align16((size_t)(O + KB) * V * 4),
                     L <= kNarrowMaxShift, kRoundShots);
+}
+
+// K4's: no tables, as many shots as fit up to kActShots.
+Plan plan_act(int V) {
+  return plan_shots(act_layout(V).bytes, 0, false, kActShots);
 }
 
 // Blocks of kernel K the card holds at once with plan p, after opting K in
@@ -980,28 +1187,32 @@ cudaError_t launch_persistent(const Plan& p, long long B, void** args,
 
 }  // namespace
 
-// The launch plan of K3 (kernel 3) or K5 (kernel 5) at a graph's shape:
-// out[0] shots (warps) per block, out[1] dynamic shared memory per block
-// in bytes, out[2] the form the kernel reads its tables in (0 the int32
-// tables in device memory, 1 K3's label bytes staged in shared memory, 2
-// K3's label words staged, 3 K5's narrow words staged), out[3] bytes of
+// The launch plan of K3 (kernel 3), K4 (kernel 4) or K5 (kernel 5) at a
+// graph's shape: out[0] shots (warps) per block, out[1] dynamic shared
+// memory per block in bytes, out[2] the form the kernel reads its tables
+// in (0 the int32 tables in device memory, 1 K3's label bytes staged in
+// shared memory, 2 K3's label words staged, 3 K5's narrow words staged, 4
+// none: K4 reads no tables), out[3] bytes of
 // one shot's state, out[4] registers per thread, out[5] resident blocks
 // per SM. K5 stages narrow words only when every entry of its tables fits
 // them: with `tables` (the int32 tables on the card) the form is the one
 // K5 takes for them, found as K5 finds it (narrow_check_kernel, then a
 // wait for the card); without, the one it takes when they fit. Returns the
 // CUDA error code (0 = success); out[0] is 0 when one shot's state does
-// not fit in a block.
+// not fit in a block, or V is past the 16-bit lists (65536).
 extern "C" int qcss_stencil_staged_config(int kernel, int V, int O, int KB,
                                           int L, const int* tables,
                                           long long* out) {
-  if (!qcss::stencil_shape_ok(V, O, KB) || V > 65536 ||
-      (kernel != 3 && kernel != 5))
+  if (!qcss::stencil_shape_ok(V, O, KB) || kernel < 3 || kernel > 5)
     return (int)cudaErrorInvalidValue;
-  const Plan p = kernel == 3 ? plan_prop(V, O, KB, L) : plan_round(V, O, KB, L);
+  Plan p = kernel == 3   ? plan_prop(V, O, KB, L)
+           : kernel == 4 ? plan_act(V)
+                         : plan_round(V, O, KB, L);
+  if (V > 65536) p.shots_per_block = 0;  // past the 16-bit lists
   out[0] = p.shots_per_block;
   out[1] = (long long)p.smem;
-  out[2] = !p.tables_in_smem ? 0 : kernel == 5 ? 3 : L <= 8 ? 1 : 2;
+  out[2] = kernel == 4 ? 4 : !p.tables_in_smem ? 0 : kernel == 5 ? 3
+           : L <= 8 ? 1 : 2;
   out[3] = (long long)p.shot_bytes;
   out[4] = out[5] = 0;
   if (p.shots_per_block == 0) return 0;
@@ -1026,14 +1237,15 @@ extern "C" int qcss_stencil_staged_config(int kernel, int V, int O, int KB,
     if (!narrow) out[2] = 0;
   }
   int per_sm = 0, sms = 0;
-  err = kernel == 3 ? resident<uf_stencil_prop_kernel>(p, &per_sm, &sms)
-                    : resident<uf_stencil_round_kernel>(p, &per_sm, &sms);
+  err = kernel == 3   ? resident<uf_stencil_prop_kernel>(p, &per_sm, &sms)
+        : kernel == 4 ? resident<uf_stencil_act_kernel>(p, &per_sm, &sms)
+                      : resident<uf_stencil_round_kernel>(p, &per_sm, &sms);
   if (err != cudaSuccess) return (int)err;
+  const void* k = kernel == 3   ? (const void*)uf_stencil_prop_kernel
+                  : kernel == 4 ? (const void*)uf_stencil_act_kernel
+                                : (const void*)uf_stencil_round_kernel;
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(
-      &attr, kernel == 3
-                 ? reinterpret_cast<const void*>(uf_stencil_prop_kernel)
-                 : reinterpret_cast<const void*>(uf_stencil_round_kernel));
+  err = cudaFuncGetAttributes(&attr, k);
   out[4] = attr.numRegs;
   out[5] = per_sm;
   return (int)err;
@@ -1063,15 +1275,14 @@ extern "C" int qcss_stencil_prop(const int* packed, const void* satm,
 extern "C" int qcss_stencil_act(const int* act, const void* passes,
                                 const int* deltas, int B, int V, int O,
                                 int* out, void* stream) {
-  if (!qcss::stencil_shape_ok(V, O, 1)) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)2 * V * sizeof(int);
-  cudaError_t err = allow_smem(uf_stencil_act_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (B > 0)
-    uf_stencil_act_kernel<<<B, kStencilThreads, smem,
-                            (cudaStream_t)stream>>>(
-        act, (const unsigned char*)passes, deltas, V, O, out);
-  return (int)cudaGetLastError();
+  if (!qcss::stencil_shape_ok(V, O, 1) || V > 65536 || B < 0)
+    return (int)cudaErrorInvalidValue;
+  const Plan p = plan_act(V);
+  long long Bl = B;
+  const unsigned char* pa = (const unsigned char*)passes;
+  void* args[] = {(void*)&act, (void*)&pa, (void*)&deltas, (void*)&Bl,
+                  (void*)&V, (void*)&O, (void*)&out};
+  return (int)launch_persistent<uf_stencil_act_kernel>(p, Bl, args, stream);
 }
 
 extern "C" int qcss_stencil_round(const int* packed, const int* seed,

@@ -14,10 +14,10 @@ cluster's odd-parity term and convergence (`device_uf._stencil_labels`).
 and `make_round_kernel`) are the staged forms that
 `device_uf_staged`'s decodes call once or twice per growth round; their
 plain versions are `device_uf._prop_plain`, `_act_plain`, `_round_plain`.
-K3 (`stencil_prop`) and K5 (`stencil_round`) run a warp a shot over lists
-of the vertices with a saturated edge, as K1 does, and read the graph's
-int32 tables (`StencilGraph.kernel_tables`); `stencil_staged_config`
-reports their launch plans.
+All three run a warp a shot over lists of the vertices with a saturated
+(K4: passing) edge, as K1 does; K3 and K5 read the graph's int32 tables
+(`StencilGraph.kernel_tables`), K4 only its offsets.
+`stencil_staged_config` reports their launch plans.
 
 Each shot stops on its own, so the TPU's tile picking, batch padding and
 shot sorting have no counterpart here. Every wrapper takes
@@ -146,11 +146,13 @@ def decode_stencil_cuda(dg, detectors: torch.Tensor):
 
 _STAGED_KEYS = ("shots_per_block", "smem_bytes", "form", "shot_bytes",
                 "registers", "blocks_per_sm")
-#: the forms K3 and K5 read their tables in (`qcss_stencil_staged_config`)
+#: the forms K3 and K5 read their tables in, and K4's (none;
+#: `qcss_stencil_staged_config`)
 _STAGED_FORMS = ("int32 tables in device memory",
                  "label bytes in shared memory",
                  "label words in shared memory",
-                 "narrow words in shared memory")
+                 "narrow words in shared memory",
+                 "no tables")
 
 
 def _staged_query(kernel: int, V: int, O: int, KB: int, L: int,
@@ -159,28 +161,29 @@ def _staged_query(kernel: int, V: int, O: int, KB: int, L: int,
     _cuda.check(_cuda.load().qcss_stencil_staged_config(
         kernel, V, O, KB, L, tables, out), "qcss_stencil_staged_config")
     plan = dict(zip(_STAGED_KEYS, (int(x) for x in out)))
-    plan["tables_in_smem"] = plan["form"] != 0
+    plan["tables_in_smem"] = plan["form"] in (1, 2, 3)
     plan["form"] = _STAGED_FORMS[plan["form"]]
     return plan
 
 
 @functools.lru_cache(maxsize=None)
 def _staged_plan(kernel: int, V: int, O: int, KB: int, L: int) -> dict:
-    """K3's (kernel 3) or K5's (5) launch plan at a shape."""
+    """K3's (kernel 3), K4's (4) or K5's (5) launch plan at a shape."""
     return _staged_query(kernel, V, O, KB, L)
 
 
 def stencil_staged_config(dg, kernel: str) -> dict:
-    """The launch plan of K3 (``kernel="prop"``) or K5 (``"round"``) on a
-    graph: shots (warps) per block, shared memory per block, bytes of one
-    shot's state, registers per thread, resident blocks per SM, and the
-    form the kernel reads the graph's tables in (`tables_in_smem` when it
-    stages them); K5's form is the one the kernel finds for these tables.
-    Needs the card: builds the kernels."""
+    """The launch plan of K3 (``kernel="prop"``), K4 (``"act"``) or K5
+    (``"round"``) on a graph: shots (warps) per block, shared memory per
+    block, bytes of one shot's state, registers per thread, resident blocks
+    per SM, and the form the kernel reads the graph's tables in
+    (`tables_in_smem` when it stages them; K4 reads none); K5's form is the
+    one the kernel finds for these tables. Needs the card: builds the
+    kernels."""
     st = dg.stencil
     V, O, KB = dg.num_nodes + 1, len(st.deltas), st.bmask.shape[0]
-    return _staged_query({"prop": 3, "round": 5}[kernel], V, O, KB,
-                         dg.pack_shift, st.kernel_tables.data_ptr())
+    return _staged_query({"prop": 3, "act": 4, "round": 5}[kernel], V, O,
+                         KB, dg.pack_shift, st.kernel_tables.data_ptr())
 
 
 def _check_fits(kernel: int, V: int, O: int, KB: int, L: int):
@@ -212,12 +215,13 @@ def stencil_prop(dg, packed: torch.Tensor, satm: torch.Tensor,
 
 
 def stencil_act(dg, act: torch.Tensor, passes: torch.Tensor) -> torch.Tensor:
-    """Launch the activity kernel: act [B, V] int32 0/1, passes [B, O, V]
-    bool -> act [B, V] int32 at the fixpoint."""
-    _, V, O, _, _, deltas = _stencil_args(dg, act)
+    """Launch the activity kernel: act [B, V] int32 (nonzero: active),
+    passes [B, O, V] bool -> act [B, V] int32 0/1 at the fixpoint."""
+    _, V, O, KB, _, deltas = _stencil_args(dg, act)
     B = act.shape[0]
     _check_plane("act", act, (B, V))
     _check_plane("passes", passes, (B, O, V), torch.bool)
+    _check_fits(4, V, O, KB, dg.pack_shift)
     out = torch.empty_like(act)
     err = _cuda.load().qcss_stencil_act(
         act.data_ptr(), passes.data_ptr(), deltas.data_ptr(), B, V, O,

@@ -961,7 +961,19 @@ def test_native_library_builds(cuda):
     assert native.available(), native.load_error
 
 
-# -- K3 and K5: a warp a shot over member and frontier lists ---------------
+# -- K3, K4 and K5: a warp a shot over member and frontier lists ----------
+
+def _act_equal(dg, act, passes):
+    """K4 on (act, passes) against its plain version, bit for bit; counted
+    once."""
+    from qcss_tpu_torch.decode import device_uf_cuda
+
+    before = device_uf_cuda.staged_launches["act"]
+    out = device_uf_cuda.stencil_act(dg, act, passes)
+    assert torch.equal(out, tdu._act_plain(dg, act, passes))
+    assert device_uf_cuda.staged_launches["act"] == before + 1
+    return out
+
 
 def _staged_equal(dg, packed, seed, sup, satm=None, satb=None):
     """K5 on (packed, seed, sup) and K3 on (packed, satm, satb) against
@@ -999,14 +1011,19 @@ def test_staged_kernels_on_the_d11_rounds(cuda, B):
         plan = device_uf_cuda.stencil_staged_config(dg, kernel)
         assert plan["shots_per_block"] > 1 and plan["tables_in_smem"]
         assert "shared memory" in plan["form"]
+    plan = device_uf_cuda.stencil_staged_config(dg, "act")
+    assert plan["shots_per_block"] > 1 and not plan["tables_in_smem"]
+    assert plan["form"] == "no tables"
     dets = _dets(g, B, 0.02, seed=B, device=cuda)
-    grew = 0
+    grew = spread = 0
     for s in round_inputs(dg, tdu.stencil_defect(dg, dets), 6):
         packed, seed, sup = s["packed"], s["seed"], s["sup"]
         ref, _ = _staged_equal(dg, packed, seed, sup)
         grew += int(ref[3].sum())
+        act = _act_equal(dg, seed, s["passes"])
+        spread += int((act != seed).sum())
     torch.cuda.synchronize()
-    assert grew > 0 or B == 1
+    assert (grew > 0 and spread > 0) or B == 1
 
 
 @pytest.mark.parametrize("change", ["none", "zero and negative weights",
@@ -1038,14 +1055,20 @@ def test_staged_kernels_on_trap_states(cuda, change):
     assert ("device memory" in form) == (change != "none")
     packed, seed, sup, satm, satb = state
     _staged_equal(dg, packed, seed, sup, satm, satb)
+    # K4 with K3's random masks as its passes (edges past the last vertex
+    # among them) and seeds of 1-3 and -1
+    act = seed.clone()
+    act[::5, 2::13] = -1
+    _act_equal(dg, act, satm)
     # and the views one element past a 16-byte boundary (K5's supports
     # then stream a word at a time)
     views = []
-    for x in (packed, seed, sup, satm, satb):
+    for x in (packed, seed, sup, satm, satb, act):
         flat = torch.zeros(x.numel() + 1, dtype=x.dtype, device=cuda)
         views.append(flat[1:].view(x.shape))
         views[-1].copy_(x)
-    _staged_equal(dg, *views)
+    _staged_equal(dg, *views[:5])
+    _act_equal(dg, views[5], views[3])
 
 
 def test_staged_kernels_on_the_parallel_window_interior(cuda):
@@ -1060,7 +1083,7 @@ def test_staged_kernels_on_the_parallel_window_interior(cuda):
                                 device=cuda)
     mid = dec._mid
     assert mid.num_nodes + 1 == 2581
-    for kernel in ("prop", "round"):
+    for kernel in ("prop", "act", "round"):
         assert device_uf_cuda.stencil_staged_config(
             mid, kernel)["shots_per_block"] >= 1
     rng = np.random.default_rng(4)
@@ -1069,6 +1092,7 @@ def test_staged_kernels_on_the_parallel_window_interior(cuda):
     for s in round_inputs(mid, tdu.stencil_defect(mid, dets), 3):
         packed, seed, sup = s["packed"], s["seed"], s["sup"]
         _staged_equal(mid, packed, seed, sup)
+        _act_equal(mid, seed, s["passes"])
 
 
 def _synthetic_graph(V, O, KB, seed, L=2):
@@ -1112,6 +1136,7 @@ def test_staged_kernels_at_the_shape_limits(cuda, V, L, form):
     for s in round_inputs(dg, tdu.stencil_defect(dg, dets), 3):
         packed, seed, sup = s["packed"], s["seed"], s["sup"]
         _staged_equal(dg, packed, seed, sup)
+        _act_equal(dg, seed, s["passes"])
     big = _synthetic_graph(20000, 2, 1, seed=3).to(cuda)
     packed = tdu.initial_labels(big, 2, cuda)
     sup = torch.zeros((2, 3, 20000), dtype=torch.int32, device=cuda)
@@ -1121,3 +1146,61 @@ def test_staged_kernels_at_the_shape_limits(cuda, V, L, form):
     with pytest.raises(ValueError, match="shared memory"):
         device_uf_cuda.stencil_prop(big, packed, masks[:, :2].contiguous(),
                                     masks[:, 2:].contiguous())
+
+
+def _act_state(rng, B, V, O, device, offset=0):
+    """K4's input at random: act [B, V] int32 with values 0, 1, 2 and -1,
+    passes [B, O, V] bool (30% set, edges past the last vertex among
+    them); both views ``offset`` elements into a larger buffer."""
+    act = rng.choice([0, 0, 0, 0, 0, 0, 1, 2, -1], (B, V)).astype(np.int32)
+    passes = rng.random((B, O, V)) < 0.3
+    out = []
+    for x in (torch.as_tensor(act), torch.as_tensor(passes)):
+        flat = torch.zeros(x.numel() + offset, dtype=x.dtype, device=device)
+        out.append(flat[offset:].view(x.shape))
+        out[-1].copy_(x)
+    return out
+
+
+@pytest.mark.parametrize("O", [1, 10])
+def test_act_kernel_at_the_shape_limits(cuda, O):
+    # K4 at O = 1 and 10 on an odd V (rows start off 16 bytes), on views
+    # whose data pointers are off 16 bytes, at B = 0 and at four shots a
+    # resident warp; then at the largest V whose shot fits a block (found
+    # from the plan), and one vertex more, where the wrapper raises and
+    # nothing falls back
+    from qcss_tpu_torch.decode import device_uf_cuda
+
+    rng = np.random.default_rng(O)
+    dg = _synthetic_graph(4001, O, 1, seed=O).to(cuda)
+    for B, offset in ((0, 0), (1, 0), (97, 0), (97, 1), (130, 3)):
+        act, passes = _act_state(rng, B, 4001, O, cuda, offset)
+        if offset:
+            assert passes.data_ptr() % 16 and act.data_ptr() % 16
+        out = _act_equal(dg, act, passes)
+        assert out.shape == (B, 4001)
+        if B:
+            assert bool((out == 1).any() & (out == 0).any())
+    # four shots a resident warp, on views off 16 bytes: every warp takes
+    # several shots, so the next shot's loads issued during a shot's
+    # spread, and each shot's own run offsets, are checked at this O
+    plan = device_uf_cuda.stencil_staged_config(dg, "act")
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    B = 4 * plan["shots_per_block"] * plan["blocks_per_sm"] * sms
+    act, passes = _act_state(rng, B, 4001, O, cuda, offset=5)
+    assert passes.data_ptr() % 16 and act.data_ptr() % 16
+    _act_equal(dg, act, passes)
+    lo, hi = 4001, 65537  # the plan fits lo and not hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        plan = device_uf_cuda._staged_query(4, mid, O, 1, 2)
+        lo, hi = (mid, hi) if plan["shots_per_block"] else (lo, mid)
+    assert device_uf_cuda._staged_query(4, lo, O, 1, 2)[
+        "shots_per_block"] == 1
+    big = _synthetic_graph(lo, O, 1, seed=5).to(cuda)
+    act, passes = _act_state(rng, 3, lo, O, cuda)
+    _act_equal(big, act, passes)
+    over = _synthetic_graph(lo + 1, O, 1, seed=6).to(cuda)
+    act, passes = _act_state(rng, 1, lo + 1, O, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        device_uf_cuda.stencil_act(over, act, passes)

@@ -31,6 +31,7 @@ PORT_MODULES = [
     "qcss_tpu_torch.benchmarks.device_uf_bench",
     "qcss_tpu_torch.benchmarks.profiling",
     "qcss_tpu_torch.benchmarks.pw_bench",
+    "qcss_tpu_torch.benchmarks.staged_bench",
     "qcss_tpu_torch.benchmarks.steane_mc",
     "qcss_tpu_torch.benchmarks.stream_bench",
     "qcss_tpu_torch.benchmarks.syndrome_sweep",

@@ -1,7 +1,8 @@
-"""The schedules of the staged stencil kernels K3 (label propagation) and K5
-(one growth round) in qcss_tpu_torch/csrc/uf_stencil_staged.cu, modelled
-in plain Python on the CPU and held against the plain versions they must
-equal bit for bit (`device_uf._prop_plain`, `device_uf._round_plain`).
+"""The schedules of the staged stencil kernels K3 (label propagation), K4
+(the activity spread) and K5 (one growth round) in
+qcss_tpu_torch/csrc/uf_stencil_staged.cu, modelled in plain Python on the
+CPU and held against the plain versions they must equal bit for bit
+(`device_uf._prop_plain`, `_act_plain`, `_round_plain`).
 
 Both kernels run a warp a shot over lists, as K1 does
 (tests/test_torch_stencil_schedule.py), but take whole states: the input
@@ -13,14 +14,19 @@ the input saturation, the first Jacobi sweep visits every member; later
 sweeps the frontier. K5 spreads activity over the members in place, grows
 the active members' edges (an edge with both ends active from its low
 end) by the shot's slack, unclamped, and records `grew` at each grown
-edge's low end. The models follow the kernels step by step; change the
-kernel and its model together.
+edge's low end. K4 folds its pass bytes into pass words the same way
+(bits 2o and 2o+1; a pass with no vertex at v + d_o dropped), takes every
+nonzero act word as a seed and spreads breadth first from the seeds, a
+frontier list a step. The models follow the kernels step by step; change
+the kernel and its model together.
 
 The states are those entering growth rounds 1-4 of the d=5 DEM decode,
 and states drawn with numpy under fixed seeds that hit the traps: labels
 not at a fixpoint (and a Gauss-Seidel sweep, which would differ), supports
 at weight + 1 and past it, zero and negative weights, weights past the
-narrow word, and a saturated slot that gives the hub the lowest comp.
+narrow word, and a saturated slot that gives the hub the lowest comp;
+K4's traps are passes past the last vertex, act values 2 and -1, all or
+no vertex active, no passes, and every edge passing.
 """
 
 from functools import lru_cache
@@ -223,6 +229,36 @@ def _model_round(g, packed_row, seed_row, sup_rows):
                                 "active": sum(act), "sweeps": sweeps}
 
 
+def _model_act(g, act_row, pass_rows):
+    """K4 on one shot: (act row out, 0/1; stats)."""
+    O, V = g.O, g.V
+    act = [int(x != 0) for x in act_row]  # every nonzero word a seed
+    # -- the pass bytes fold into pass words
+    pw = [0] * V
+    for o, d in enumerate(g.deltas):
+        for v in range(V):
+            if pass_rows[o][v] and v + d < V:
+                pw[v] |= 1 << (2 * o)
+                pw[v + d] |= 1 << (2 * o + 1)
+    # -- the spread, a frontier a step from the seeds: each inactive end
+    #    of a frontier vertex's passing edge is claimed once
+    frontier = [v for v in range(V) if act[v]]
+    steps = 0
+    while frontier:
+        steps += 1
+        fresh = set()
+        for u in frontier:
+            for b in range(2 * O):
+                if (pw[u] >> b) & 1:
+                    d = g.deltas[b >> 1]
+                    w = u - d if b & 1 else u + d
+                    if not act[w]:
+                        act[w] = 1
+                        fresh.add(w)
+        frontier = sorted(fresh)
+    return act, {"steps": steps}
+
+
 @lru_cache(maxsize=None)
 def _dem_d5():
     code = rotated_surface(5)
@@ -246,6 +282,18 @@ def _hold_round(dg, packed, seed, sup):
         assert cur == ref[0][b].tolist(), f"K5 labels differ on shot {b}"
         assert sup_out == ref_sup[b].tolist(), f"K5 supports, shot {b}"
         assert grew == ref[3][b].tolist(), f"K5 grew differs on shot {b}"
+        stats.append(st)
+    return ref, stats
+
+
+def _hold_act(dg, act, passes):
+    """The K4 model against `_act_plain` on every shot; the stats."""
+    g = _Graph(dg)
+    ref = tdu._act_plain(dg, act, passes)
+    stats = []
+    for b in range(act.shape[0]):
+        out, st = _model_act(g, act[b].tolist(), passes[b].tolist())
+        assert out == ref[b].tolist(), f"K4 act differs on shot {b}"
         stats.append(st)
     return ref, stats
 
@@ -274,16 +322,18 @@ def test_schedules_equal_plain_on_the_dem_rounds():
     defect = tdu.stencil_defect(dg, dets)
     defect[0] = 0  # a shot without defects
     O = len(dg.stencil.deltas)
-    adopted = grew_any = False
+    adopted = grew_any = spread = False
     for s in round_inputs(dg, defect, 4):
         packed, seed, sup = s["packed"], s["seed"], s["sup"]
         ref, stats = _hold_round(dg, packed, seed, sup)
         grew_any |= bool(ref[3].any())
+        act, _ = _hold_act(dg, seed, s["passes"])
+        spread |= bool((act != (seed != 0)).any())
         satm, satb = tdu._saturated(dg, ref[1], ref[2])
         out, _ = _hold_prop(dg, packed, satm, satb)
         adopted |= not torch.equal(out, packed)
         assert max(s["members"] for s in stats) < dg.num_nodes + 1
-    assert adopted and grew_any
+    assert adopted and grew_any and spread
 
 
 def _trap_graph(change):
@@ -384,3 +434,58 @@ def test_gauss_seidel_sweeps_would_differ():
         differs += _model_prop(*args, gauss_seidel=True)[0] \
             != ref[b].tolist()
     assert differs > 0
+
+
+def _act_trap(dg, trap, B, seed):
+    """K4's input drawn with numpy for one trap: act [B, V] int32, passes
+    [B, O, V] bool."""
+    rng = np.random.default_rng(seed)
+    V = dg.num_nodes + 1
+    deltas = dg.stencil.deltas
+    O = len(deltas)
+    act = np.where(rng.random((B, V)) < 0.05, 1, 0)
+    passes = rng.random((B, O, V)) < 0.12
+    if trap == "passes past the last vertex":
+        for o, d in enumerate(deltas):
+            passes[:, o, V - d:] = True
+    elif trap == "act values 2 and -1":
+        act = np.where(rng.random((B, V)) < 0.06,
+                       rng.choice([2, -1, 7], (B, V)), 0)
+    elif trap == "all active":
+        act = rng.choice([1, 2, -1], (B, V))
+    elif trap == "none active":
+        act[:] = 0
+    elif trap == "no passes":
+        passes[:] = False
+    elif trap == "every edge passing":
+        passes[:] = True
+        act[:] = 0
+        act[::2, 0] = 1  # one seed a shot, at an end of the row
+        act[1::2, V - 1] = 1
+    return (torch.as_tensor(act.astype(np.int32)),
+            torch.as_tensor(passes))
+
+
+@pytest.mark.parametrize("trap", [
+    "passes past the last vertex", "act values 2 and -1", "all active",
+    "none active", "no passes", "every edge passing"])
+def test_act_schedule_equals_plain_on_trap_states(trap):
+    dg = _dem_d5()
+    V = dg.num_nodes + 1
+    act, passes = _act_trap(dg, trap, 16, seed=31)
+    ref, stats = _hold_act(dg, act, passes)
+    assert set(ref.unique().tolist()) <= {0, 1}
+    steps = [s["steps"] for s in stats]
+    if trap == "act values 2 and -1":
+        assert bool(((act != 0) & (act != 1)).any())
+    if trap in ("all active", "none active", "no passes"):
+        # nothing to spread: the output is act != 0
+        assert torch.equal(ref, (act != 0).to(torch.int32))
+    if trap == "every edge passing":
+        # one seed at an end reaches every vertex, at most max(d)
+        # vertices further a frontier step
+        assert bool((ref == 1).all())
+        assert min(steps) >= (V - 1) // max(dg.stencil.deltas)
+    if trap == "passes past the last vertex":
+        # the edges past the last vertex are dropped, not wrapped
+        assert bool(passes[:, :, V - 1].all())
