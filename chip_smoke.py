@@ -84,6 +84,19 @@ the stencil kernel:
    failure rate against `DeviceStreamingDecoder`'s; K1 must have launched
    on the parallel window's chunk graphs at every distance, counted
    around the parallel window's own calls;
+   main path 8, the circuit-level qLDPC memory (BP+OSD in plain torch,
+   no hand kernel on it): `qldpc_memory_experiment` on bb144, R=12,
+   B=8192, both sectors, uniform p=2e-3, 32 BP iterations, through
+   `benchmarks/bp_bench.py` (shots/s, wall seconds, word/x/z failure
+   beside the reference's recorded 0.46% word failure as information,
+   BP convergence, faults per sector, BP iterations, the OSD tail and its
+   backend, the time split into sampler, graph build, detectors, BP and
+   OSD, peak device memory); the device OSD-0 against the native host
+   OSD-0 on that run's unconverged z-sector tail, bit for bit, and the
+   device order-E sweep (order 2, lambda 16/10) against the host's by
+   soft weight; the card's bb72 R=6 B=2048 x_fail against the CPU's by a
+   two-sample 99.9% test; and `qldpc_stream_memory_rate` on bb72, R=24,
+   B=4096, window 8, commit 4 (round-shots/s); one JSON line `qldpc`;
 9. times each kernel, its plain version and (K6, K7) the dense matmul
    form at the main paths' shapes, beside each kernel's bound, checking
    each timed output against the plain version's; K9 and K2 through
@@ -154,6 +167,15 @@ PW_ROUNDS = 96
 PW_P = 0.004
 PW_CHECK = 256
 PW_REPS = 3
+QLDPC_CODE = "bb144"
+QLDPC_ROUNDS = 12
+QLDPC_BATCH = 8192
+QLDPC_ITERS = 32
+QLDPC_P = 2e-3
+QLDPC_REF_WORD_FAIL = 0.0046   # BASELINE.md, bb144 R=12: information only
+QLDPC_CMP = ("bb72", 6, 2048)  # code, rounds, batch: the card against the CPU
+QLDPC_STREAM = ("bb72", 24, 4096)
+QLDPC_OSDE_CHECK = 1024        # tail shots of (b)'s order-E comparison
 Z999 = 3.2905
 
 
@@ -577,6 +599,135 @@ def path7(dev, code, noise, graph, dets_big):
         f"{launches['chunks']} of them with chunks; the parallel window's "
         f"own {launches['pw']}, {launches['pw_chunks']} with chunks")
     return host, rows, launches, agree
+
+
+def path8(dev):
+    """Main path 8, the circuit-level qLDPC memory (BP+OSD, plain torch on
+    the device): (a) `qldpc_memory_experiment` at QLDPC_CODE, R =
+    QLDPC_ROUNDS, B = QLDPC_BATCH, both sectors, through
+    `benchmarks/bp_bench.py`; (b) the device OSD-0 against the native host
+    OSD-0 on (a)'s unconverged z-sector tail, bit for bit, and the device
+    order-E sweep against the host's by soft weight; (c) the card's
+    x_fail against the CPU's at QLDPC_CMP by a two-sample 99.9% test;
+    (d) `qldpc_stream_memory_rate` at QLDPC_STREAM. Returns the rows."""
+    import numpy as np
+    import torch
+
+    from qcss_tpu_torch import native
+    from qcss_tpu_torch._cuda import synchronize
+    from qcss_tpu_torch.benchmarks import bp_bench
+    from qcss_tpu_torch.decode.bp import _osd_tail
+    from qcss_tpu_torch.experiments.memory_qldpc import qldpc_memory_experiment
+
+    # (a)
+    prof = {}
+    row = bp_bench.bench_circuit(QLDPC_CODE, QLDPC_ROUNDS, QLDPC_P,
+                                 QLDPC_BATCH, QLDPC_ITERS, 0, "both", dev,
+                                 profile=prof)
+    split = ", ".join(f"{k} {v:.3f}" for k, v in row["split_s"].items())
+    log(f"path 8 (a): qldpc_memory_experiment {QLDPC_CODE} R={QLDPC_ROUNDS} "
+        f"B={QLDPC_BATCH} p={QLDPC_P} iters={QLDPC_ITERS} both sectors: "
+        f"{row['shots_per_sec']:.1f} shots/s ({row['wall_s']:.3f} s wall, "
+        f"graph build included); word_fail {row['word_fail']:.6f} (the "
+        f"reference recorded {QLDPC_REF_WORD_FAIL}, information only), "
+        f"x_fail {row['x_fail']:.6f}, z_fail {row['z_fail']:.6f}, "
+        f"bp_converged z {row['bp_converged_z']:.4f} x "
+        f"{row['bp_converged_x']:.4f}; faults z {row['faults_z']} x "
+        f"{row['faults_x']}; BP iterations z {row['bp_iters_z']} x "
+        f"{row['bp_iters_x']}; OSD tail z {row['osd_tail_z']} x "
+        f"{row['osd_tail_x']} on {row['osd_backend_z']} "
+        f"({row['osd_host_fallback_z']} + {row['osd_host_fallback_x']} "
+        f"re-solved on the host); seconds: {split}; peak memory "
+        f"{row['peak_mem_gb']} GiB")
+    if not (row["faults_z"] > 0 and 0.0 <= row["word_fail"] < 0.05
+            and row["bp_converged_z"] > 0 and row["bp_converged_x"] > 0):
+        raise RuntimeError(f"implausible qLDPC memory result {row}")
+    # (b)
+    tail = prof["z"].get("tail_inputs")
+    if tail is None or tail["synd"].shape[0] == 0:
+        raise RuntimeError("(a) left no OSD tail to check")
+    h, synd, soft = tail["h"], tail["synd"], tail["soft"]
+    synchronize(dev)
+    t0 = time.perf_counter()
+    e_dev, _, short = _osd_tail(h, synd, soft, backend="device")
+    synchronize(dev)
+    dev_s = time.perf_counter() - t0
+    synd_np, soft_np = synd.cpu().numpy(), soft.cpu().numpy()
+    t0 = time.perf_counter()
+    e_host = native.osd0_batch_native(h, synd_np, soft_np)
+    host_s = time.perf_counter() - t0
+    if e_host is None:
+        raise RuntimeError("the native OSD did not load")
+    differ = int((e_dev.cpu().numpy() != e_host).any(axis=1).sum())
+    m = min(synd.shape[0], QLDPC_OSDE_CHECK)
+    synchronize(dev)
+    t0 = time.perf_counter()
+    ee_dev, _, eshort = _osd_tail(h, synd[:m], soft[:m], backend="device",
+                                  sweep=(2, 16, 10))
+    synchronize(dev)
+    dev_e_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ee_host = native.osde_batch_native(h, synd_np[:m], soft_np[:m], 2,
+                                       16, 10)
+    host_e_s = time.perf_counter() - t0
+    w = np.abs(soft_np[:m]).astype(np.float64)
+    w_dev = (ee_dev.cpu().numpy() * w).sum(axis=1)
+    w_host = (ee_host * w).sum(axis=1)
+    w_gap = float(np.max(np.abs(w_dev - w_host)
+                         / np.maximum(1.0, w_host), initial=0.0))
+    e_differ = int((ee_dev.cpu().numpy() != ee_host).any(axis=1).sum())
+    r_h, n_h = h.shape
+    osd = {"tail": int(synd.shape[0]), "rank_short": short,
+           "osd0_differ": differ, "osd0_dev_s": dev_s,
+           "osd0_host_s": host_s, "osde_shots": m,
+           "osde_rank_short": eshort, "osde_differ": e_differ,
+           "osde_rel_weight_gap": w_gap, "osde_dev_s": dev_e_s,
+           "osde_host_s": host_e_s}
+    log(f"path 8 (b): device OSD-0 against the native host OSD-0 on (a)'s "
+        f"z-sector tail of {osd['tail']} shots ([{r_h} x {n_h}]): "
+        f"{differ} shots differ, {short} short of rank within the column "
+        f"cap (re-solved on the host); device {dev_s:.3f} s, host "
+        f"{host_s:.3f} s. OSD-E (order 2, lambda 16/10) on {m} shots: "
+        f"{e_differ} solutions differ, largest relative soft-weight gap "
+        f"{w_gap:.3g}, {eshort} short of rank; device {dev_e_s:.3f} s, "
+        f"host {host_e_s:.3f} s")
+    if differ or w_gap > 1e-4:
+        raise RuntimeError("the device OSD disagrees with the host's")
+    # (c)
+    cname, crounds, cbatch = QLDPC_CMP
+    ccode = bp_bench.CODES[cname]()
+    cmp = {}
+    for label, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        out = qldpc_memory_experiment(
+            ccode, rounds=crounds, noise=bp_bench.uniform_noise(QLDPC_P),
+            batch=cbatch, iters=QLDPC_ITERS, sectors="z", seed=5,
+            device=where)
+        cmp[label] = {"x_fail": out["x_fail"],
+                           "fails": round(out["x_fail"] * cbatch),
+                           "bp_converged_z": out["bp_converged_z"],
+                           "wall_s": time.perf_counter() - t0}
+    passed, spread = two_sample_ok(cmp["card"]["fails"], cbatch,
+                                   cmp["cpu"]["fails"], cbatch)
+    log(f"path 8 (c): {cname} R={crounds} B={cbatch} x_fail: card "
+        f"{cmp['card']['x_fail']:.6f} ({cmp['card']['fails']} fails, "
+        f"{cmp['card']['wall_s']:.2f} s), CPU {cmp['cpu']['x_fail']:.6f} "
+        f"({cmp['cpu']['fails']} fails, {cmp['cpu']['wall_s']:.2f} s); "
+        f"allowed difference {spread:.6f} (two-sample 99.9%)")
+    if not passed:
+        raise RuntimeError("the card's qLDPC x_fail disagrees with the CPU's")
+    # (d)
+    sname, srounds, sbatch = QLDPC_STREAM
+    stream = bp_bench.bench_circuit_stream(sname, srounds, QLDPC_P, sbatch,
+                                           WINDOW, COMMIT, 48, 0, dev)
+    log(f"path 8 (d): qldpc_stream_memory_rate {sname} R={srounds} "
+        f"B={sbatch} window {WINDOW} commit {COMMIT}: "
+        f"{stream['round_shots_per_sec']:.1f} round-shots/s, x_fail "
+        f"{stream['x_fail']:.6f}, all windows converged "
+        f"{stream['bp_all_windows_converged']:.4f}")
+    if not 0.0 <= stream["x_fail"] < 0.2:
+        raise RuntimeError(f"implausible qLDPC stream result {stream}")
+    return {"memory": row, "osd": osd, "card_vs_cpu": cmp, "stream": stream}
 
 
 def main() -> int:
@@ -1162,6 +1313,10 @@ def main() -> int:
     host, pw_rows, pw_launches, uf_agree = path7(
         dev, code, noise, graph, dets_big)
 
+    # -- 8f. main path 8: the circuit-level qLDPC memory, BP+OSD in plain
+    #    torch on the card (no hand kernel is on this path)
+    qldpc = path8(dev)
+
     # -- 9. kernel and plain-version times at the main paths' shapes
     defect_big = duf.stencil_defect(dg, dets_big)
     k1_ms = cuda_ms(lambda: device_uf_cuda.stencil_full(dg, defect_big), 20)
@@ -1430,6 +1585,7 @@ def main() -> int:
                       "card": smi}), flush=True)
     lib_note = ("gf2_torch.syndromes_dense: one float32 torch.matmul with "
                 "casts, on the unpacked [B, n] bits (another layout)")
+    print(json.dumps({"qldpc": qldpc}), flush=True)
     print(json.dumps({"kernels": [
         {"name": "uf_stencil_full", "route": "cuda",
          "source": "qcss_tpu_torch/csrc/uf_stencil_full.cu",

@@ -163,6 +163,15 @@ def resolve_device(device) -> "torch.device":
     return device
 
 
+def synchronize(device) -> None:
+    """Wait for the work queued on ``device`` (nothing to wait for on the
+    CPU): timers around device work call this at each mark."""
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def check(err: int, name: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:

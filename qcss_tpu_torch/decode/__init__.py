@@ -5,8 +5,10 @@ Monte Carlo (`montecarlo`, `multiround`, `sweep`), the spacetime LUT
 the dense stencil decoder (`device_uf`, its staged routes in
 `device_uf_staged`), the defect-granular sparse decoder (`device_sparse`),
 sliding-window streaming decoding on the host and the device
-(`streaming`, `device_streaming`) and parallel-window decoding
-(`parallel_window`)."""
+(`streaming`, `device_streaming`), parallel-window decoding
+(`parallel_window`), and the qLDPC stack: batched BP+OSD (`bp`), the
+two-sector DEM (`dem2`), circuit-level Tanner graphs (`bp_dem`) and
+sliding-window BP (`bp_streaming`)."""
 
 from qcss_tpu_torch.decode.lut import (
     correct_errors,
@@ -22,6 +24,24 @@ from qcss_tpu_torch.decode.montecarlo import (
 from qcss_tpu_torch.decode.sweep import error_rate_curve
 from qcss_tpu_torch.decode.multiround import multiround_error_rate
 from qcss_tpu_torch.decode.dem import circuit_level_graph, extraction_gate_list
+from qcss_tpu_torch.decode.dem2 import TwoSectorDEM, build_two_sector_dem
+from qcss_tpu_torch.decode.bp import (
+    BPDecoder,
+    bp_logical_error_rate,
+    bp_phenomenological_error_rate,
+    spacetime_tanner,
+)
+from qcss_tpu_torch.decode.bp_dem import (
+    CircuitTanner,
+    build_circuit_tanner,
+    build_joint_circuit_tanner,
+    circuit_bp_decoder,
+    joint_circuit_bp_decoder,
+)
+from qcss_tpu_torch.decode.bp_streaming import (
+    BPStreamingDecoder,
+    CircuitBPStreamingDecoder,
+)
 from qcss_tpu_torch.decode.device_sparse import (
     make_hybrid_obs_decoder,
     make_sparse_obs_decoder,
@@ -61,6 +81,10 @@ from qcss_tpu_torch.decode.parallel_window import (
 from qcss_tpu_torch.decode import classical
 
 __all__ = [
+    "BPDecoder",
+    "BPStreamingDecoder",
+    "CircuitBPStreamingDecoder",
+    "CircuitTanner",
     "DeviceStreamingDecoder",
     "DeviceUFDecoder",
     "MWPMDecoder",
@@ -68,7 +92,14 @@ __all__ = [
     "MatchingGraph",
     "ParallelWindowDecoder",
     "StreamingDecoder",
+    "TwoSectorDEM",
     "UFDecoder",
+    "bp_logical_error_rate",
+    "bp_phenomenological_error_rate",
+    "build_circuit_tanner",
+    "build_joint_circuit_tanner",
+    "build_two_sector_dem",
+    "circuit_bp_decoder",
     "circuit_level_graph",
     "classical",
     "correct_errors",
@@ -80,6 +111,7 @@ __all__ = [
     "error_rate_curve",
     "extraction_gate_list",
     "graph_from_checks",
+    "joint_circuit_bp_decoder",
     "logical_error_rate",
     "make_hybrid_obs_decoder",
     "make_obs_decoder",
@@ -93,6 +125,7 @@ __all__ = [
     "spacetime_check_matrix",
     "spacetime_correction_lut",
     "spacetime_graph",
+    "spacetime_tanner",
     "stream_memory_rate",
     "stream_memory_rate_dem",
     "uf_logical_error_rate",

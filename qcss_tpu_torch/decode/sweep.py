@@ -27,7 +27,7 @@ def error_rate_curve(code, ps, *, samples_per_point: int = 1 << 20,
     if mesh is not None:
         raise NotImplementedError(
             "sharded sweeps are not ported yet (ROADMAP.md, queue 1, "
-            "item 10: torch.distributed)")
+            "item 7: torch.distributed)")
     done: dict[float, dict] = {}
     if checkpoint_path and os.path.exists(checkpoint_path):
         with open(checkpoint_path) as f:

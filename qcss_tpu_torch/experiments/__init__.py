@@ -7,11 +7,19 @@ from qcss_tpu_torch.experiments.memory import (
     z_extraction_circuit,
     z_memory_experiment,
 )
+from qcss_tpu_torch.experiments.memory_qldpc import (
+    qldpc_memory_experiment,
+    qldpc_stream_memory_rate,
+)
+from qcss_tpu_torch.experiments.memory_xz import xz_memory_experiment
 
 __all__ = [
     "memory_experiment",
+    "qldpc_memory_experiment",
+    "qldpc_stream_memory_rate",
     "x_extraction_circuit",
     "x_memory_experiment",
+    "xz_memory_experiment",
     "z_extraction_circuit",
     "z_memory_experiment",
 ]

@@ -42,7 +42,7 @@ from qcss_tpu_torch.sim import tableau_packed as tp
 
 WORD = 32
 _NOT_PORTED = ("the frame engine is not ported yet (ROADMAP.md, queue 1, "
-               "slice 6: FrameEngine needs frame.run_compiled_noisy_multi, "
+               "item 2: FrameEngine needs frame.run_compiled_noisy_multi, "
                "the qubits= window and inject1_many/inject2_many)")
 
 

@@ -43,8 +43,12 @@ class NoiseModel:
     a noise location is emitted at all); use `from_decoherence`, which
     keeps them consistent.
 
-    p_idle / pauli_idle: idle noise locations, kept for parity with the
-    reference's field set; the memory experiment refuses p_idle != 0.
+    p_idle / pauli_idle: a per-round idle channel on every data qubit
+    (uniform total, or biased (p_x, p_y, p_z)), read through `rate_idle`.
+    The two-sector sampler (`experiments.memory_xz`) charges it at each
+    round boundary, and the two-sector DEM and circuit-level Tanner graphs
+    (`decode.dem2`, `decode.bp_dem`) book the same species; the
+    single-sector `memory_experiment` refuses p_idle != 0.
     """
 
     p_gate1: float = 0.0
@@ -71,6 +75,12 @@ class NoiseModel:
         """2q-location channel: (p_x, p_y, p_z) per touched qubit if
         biased, else the scalar 15-way-depolarizing total."""
         return self.pauli2 if self.pauli2 is not None else self.p_gate2
+
+    @property
+    def rate_idle(self):
+        """Per-time-step idle channel: (p_x, p_y, p_z) if biased, else the
+        scalar uniform total."""
+        return self.pauli_idle if self.pauli_idle is not None else self.p_idle
 
     @classmethod
     def from_decoherence(cls, t1: float, t2: float,

@@ -28,6 +28,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_MODULES = [
     "qcss_tpu_torch",
     "qcss_tpu_torch._cuda",
+    "qcss_tpu_torch.benchmarks.bp_bench",
     "qcss_tpu_torch.benchmarks.device_uf_bench",
     "qcss_tpu_torch.benchmarks.profiling",
     "qcss_tpu_torch.benchmarks.pw_bench",
@@ -43,8 +44,12 @@ PORT_MODULES = [
     "qcss_tpu_torch.codes.symplectic",
     "qcss_tpu_torch.decode",
     "qcss_tpu_torch.decode.blossom",
+    "qcss_tpu_torch.decode.bp",
+    "qcss_tpu_torch.decode.bp_dem",
+    "qcss_tpu_torch.decode.bp_streaming",
     "qcss_tpu_torch.decode.calibrate",
     "qcss_tpu_torch.decode.classical",
+    "qcss_tpu_torch.decode.dem2",
     "qcss_tpu_torch.decode.device_sparse",
     "qcss_tpu_torch.decode.device_sparse_cuda",
     "qcss_tpu_torch.decode.device_uf",
@@ -61,6 +66,8 @@ PORT_MODULES = [
     "qcss_tpu_torch.decode.sweep",
     "qcss_tpu_torch.decode.uf",
     "qcss_tpu_torch.experiments.memory",
+    "qcss_tpu_torch.experiments.memory_qldpc",
+    "qcss_tpu_torch.experiments.memory_xz",
     "qcss_tpu_torch.ftqc",
     "qcss_tpu_torch.ftqc.engines",
     "qcss_tpu_torch.native",
@@ -131,7 +138,8 @@ VERBATIM = ["errors.py", "circuits/ir.py", "circuits/encoding.py",
             "codes/qecc.py", "codes/families.py", "codes/__init__.py",
             "codes/symplectic.py", "codes/distance.py", "decode/dem.py",
             "decode/blossom.py", "decode/calibrate.py", "decode/mwpm.py",
-            "sim/statevec.py"]
+            "sim/statevec.py", "decode/dem2.py", "decode/bp_dem.py",
+            "decode/bp_streaming.py"]
 
 
 @pytest.mark.parametrize("rel", VERBATIM)
@@ -170,6 +178,8 @@ COPIED_DEFS = [
     ("decode/spacetime.py", ["spacetime_check_matrix",
                              "spacetime_correction_lut"]),
     ("decode/streaming.py", ["_window_graph", "StreamingDecoder"]),
+    ("decode/bp.py", ["_osde_py", "_check_major_layout",
+                      "open_window_tanner", "spacetime_tanner"]),
 ]
 
 
