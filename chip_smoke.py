@@ -97,6 +97,30 @@ the stencil kernel:
    soft weight; the card's bb72 R=6 B=2048 x_fail against the CPU's by a
    two-sample 99.9% test; and `qldpc_stream_memory_rate` on bb72, R=24,
    B=4096, window 8, commit 4 (round-shots/s); one JSON line `qldpc`;
+   main path 9, per-shot side-information decoding (plain torch and the
+   host decoders; K1 on the static-weight arms): (a) belief-matching,
+   `benchmarks/belief_bench.py` (`xz_memory_experiment(belief=32)`) at
+   rotated surface d = 5, 7, R = d, B=16384, p_gate2=2e-3, p_meas=5e-3:
+   independent, correlated and belief failures on the same shots, the
+   time split (joint graph and DEM build, BP posteriors, the weight
+   projection, host UF) and peak device memory; at d=5 the belief word
+   failures may not exceed the independent ones; (b) the fused soft
+   decode (`soft_device_memory_rate`, d=5, R=5, p=3e-3, sigma=0.7,
+   B=8192, 4 reps; shots/s) and one batch's weighted device decode
+   against the host `UFDecoder` with the same weights (agreement at
+   least 0.99); (c) `erasure_phenomenological_error_rate` (d=5, p=1e-3,
+   p_erase=0.01, 2^15 samples, batch 2^13, decoder='device'), heralded
+   failures at most blind, K1 launched in the blind arm; (d)
+   `leakage_memory_experiment` (d=5, R=10, p=1e-3, p_leak=5e-3,
+   decoder='device': heralded, calibrated, blind) and
+   `leakage_circuit_memory` (d=5, R=10, B=8192, p_leak=4e-3; heralded
+   and blind), each leak fraction beside `expected_leak_profile`; (e)
+   `MLDecoder` on the [[34,4,3]] hypergraph product of the [5,2,3] code
+   at p=0.05 on 8192 syndromes, the card's flips equal to the CPU's but
+   where the best two class scores tie within 1e-5 relative (counted),
+   and `device_decode_fn` equal to `decode_flips` on the card; K1's
+   launches over the path and per arm; one JSON line
+   `side_information`;
 9. times each kernel, its plain version and (K6, K7) the dense matmul
    form at the main paths' shapes, beside each kernel's bound, checking
    each timed output against the plain version's; K9 and K2 through
@@ -176,6 +200,20 @@ QLDPC_REF_WORD_FAIL = 0.0046   # BASELINE.md, bb144 R=12: information only
 QLDPC_CMP = ("bb72", 6, 2048)  # code, rounds, batch: the card against the CPU
 QLDPC_STREAM = ("bb72", 24, 4096)
 QLDPC_OSDE_CHECK = 1024        # tail shots of (b)'s order-E comparison
+SI_BELIEF_D = (5, 7)              # belief_bench's surface distances, R = d
+SI_BELIEF_BATCH = 16384
+SI_BELIEF_ITERS = 32
+SI_BELIEF_NOISE = (2e-3, 5e-3)    # p_gate2, p_meas
+SI_BELIEF_REF = {5: (0.00150, 0.00339)}  # BASELINE.md: belief, independent
+SI_D = 5                          # sideinfo_bench's distance
+SI_SEED = 1
+SI_SOFT = (3e-3, 0.7, 8192, 4)    # p, sigma, batch, reps
+SI_SOFT_AGREE = 0.99              # device against host, BASELINE.md
+SI_ERASE = (1e-3, 0.01, 1 << 15, 1 << 13)  # p, p_erase, samples, batch
+SI_LEAK = (1e-3, 5e-3, 10, 1 << 15, 1 << 13)  # p, p_leak, R, samples, batch
+SI_LEAK_CIRCUIT = (10, 8192, 4e-3)  # R, batch, p_leak
+SI_MLD = (0.05, 8192, 2048)       # p, syndromes, CPU slice
+SI_MLD_TIE = 1e-5                 # relative gap of the best two class scores
 Z999 = 3.2905
 
 
@@ -728,6 +766,265 @@ def path8(dev):
     if not 0.0 <= stream["x_fail"] < 0.2:
         raise RuntimeError(f"implausible qLDPC stream result {stream}")
     return {"memory": row, "osd": osd, "card_vs_cpu": cmp, "stream": stream}
+
+
+def path9(dev):
+    """Main path 9, per-shot side-information decoding: (a) belief-matching
+    (`belief_bench.run`: `xz_memory_experiment(belief=32)`) at rotated
+    surface d = 5, 7, R = d, B = 16384 beside independent and correlated
+    matching on the same shots, with the time split and the peak device
+    memory; (b) the fused soft decode (`soft_device_memory_rate`) and, on
+    one batch, its device decode against the host `UFDecoder` with the
+    same weights; (c) `erasure_phenomenological_error_rate` with
+    decoder='device', heralded and blind; (d) `leakage_memory_experiment`
+    with decoder='device', heralded, calibrated and blind, and
+    `leakage_circuit_memory` heralded and blind; (e) `MLDecoder` on the
+    [[34,4,3]] hypergraph product, card against CPU, and its
+    `device_decode_fn` against `decode_flips` on the card. K1's launches
+    are counted over the path and per arm. Returns the rows."""
+    import numpy as np
+    import torch
+
+    from qcss_tpu_torch.benchmarks import belief_bench
+    from qcss_tpu_torch.codes import families
+    from qcss_tpu_torch.decode import device_uf, device_uf_cuda
+    from qcss_tpu_torch.decode.mld import MLDecoder
+    from qcss_tpu_torch.decode.uf import UFDecoder
+    from qcss_tpu_torch.experiments import erasure, leakage, soft
+    from qcss_tpu_torch.ops import gf2_torch
+    from qcss_tpu_torch.sim.noise import NoiseModel, chunk_generators
+
+    t_path = time.perf_counter()
+    device_uf_cuda.launches = device_uf_cuda.chunk_launches = 0
+    out = {}
+    # (a)
+    rows = {}
+    for d in SI_BELIEF_D:
+        torch.cuda.reset_peak_memory_stats(dev)
+        prof = []
+        row = belief_bench.run(d, SI_BELIEF_BATCH, 1, *SI_BELIEF_NOISE,
+                               SI_BELIEF_ITERS, dev, profile=prof)
+        row["split_s"] = prof[0]
+        row["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        row["failures"] = {k: round(row[k] * SI_BELIEF_BATCH)
+                           for k in belief_bench.RATE_KEYS}
+        rows[d] = row
+        fl = row["failures"]
+        log(f"path 9 (a): belief-matching d={d} R={d} B={SI_BELIEF_BATCH} "
+            f"p_gate2={SI_BELIEF_NOISE[0]} p_meas={SI_BELIEF_NOISE[1]} "
+            f"iters={SI_BELIEF_ITERS}: word failures independent "
+            f"{fl['word_fail']} ({row['word_fail']:.6f}), correlated "
+            f"{fl['word_fail_corr']} ({row['word_fail_corr']:.6f}), belief "
+            f"{fl['word_fail_belief']} ({row['word_fail_belief']:.6f}); x / "
+            f"z failures independent {fl['x_fail']} / {fl['z_fail']}, "
+            f"correlated z {fl['z_fail_corr']}, belief "
+            f"{fl['x_fail_belief']} / {fl['z_fail_belief']}; wall "
+            f"{row['wall_s']:.3f} s; seconds: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in row["split_s"].items())
+            + f"; peak memory {row['peak_mem_gb']:.3f} GiB")
+    ref = SI_BELIEF_REF[5]
+    log(f"path 9 (a): d=5 word failure rates belief {rows[5]['word_fail_belief']:.6f} "
+        f"against independent {rows[5]['word_fail']:.6f} (BASELINE.md "
+        f"recorded {ref[0]} against {ref[1]} on its own shots: accuracy "
+        f"reference only)")
+    if rows[5]["failures"]["word_fail_belief"] > rows[5]["failures"]["word_fail"]:
+        raise RuntimeError("belief-matching failed more shots than "
+                           "independent matching at d=5")
+    for row in rows.values():
+        if not 0.0 <= row["word_fail"] < 0.05:
+            raise RuntimeError(f"implausible belief-matching row {row}")
+    out["belief"] = rows
+    # (b)
+    code = families.rotated_surface(SI_D)
+    p, sigma, batch, reps = SI_SOFT
+    fused = soft.soft_device_memory_rate(code, p, sigma, rounds=SI_D,
+                                         batch=batch, reps=reps,
+                                         seed=SI_SEED, device=dev)
+    graph, w_space, base_ln = soft._fused_soft_graph(code, p, sigma, SI_D, 8)
+    dg = device_uf.build_device_graph(graph, stencil=False).to(dev)
+    h_t, lz_t = soft._code_tensors(code, dev)
+    gen = chunk_generators(SI_SEED + 1, 1, dev)[0]
+    dets, par, amp = soft._sample_soft_stream(gen, p, sigma, batch, SI_D,
+                                              code.n, h_t, lz_t)
+    sw = soft._soft_shot_weights(
+        amp, sigma, 8, base_ln,
+        torch.as_tensor(w_space.astype(np.int32), device=dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    labels, conv = device_uf.decode_labels(dg, dets, shot_weights=sw)
+    obs_dev = labels[0].cpu().numpy().astype(np.uint32)
+    dev_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, obs_host = UFDecoder(graph).decode_batch(
+        dets.cpu().numpy(), want_corrections=False,
+        shot_weights=sw.cpu().numpy().astype(np.uint8))
+    host_s = time.perf_counter() - t0
+    agree = float(np.mean(obs_dev == obs_host))
+    par_bits = par.cpu().numpy()[:, 0].astype(np.uint32)
+    out["soft"] = {**fused, "agreement": agree,
+                   "converged": bool(conv.all()),
+                   "fails_device": int((obs_dev != par_bits).sum()),
+                   "fails_host": int((obs_host != par_bits).sum()),
+                   "device_decode_s": dev_s, "host_decode_s": host_s}
+    log(f"path 9 (b): soft_device_memory_rate d={SI_D} R={SI_D} p={p} "
+        f"sigma={sigma} B={batch} reps={reps}: "
+        f"{fused['shots_per_sec']:.1f} shots/s, logical_fail "
+        f"{fused['logical_fail']:.6f}; one batch's weighted decode, device "
+        f"against host UFDecoder: agreement {agree:.6f} (at least "
+        f"{SI_SOFT_AGREE}), failures {out['soft']['fails_device']} / "
+        f"{out['soft']['fails_host']}, device {dev_s:.3f} s, host "
+        f"{host_s:.3f} s")
+    if agree < SI_SOFT_AGREE or not out["soft"]["converged"]:
+        raise RuntimeError("the fused soft decode disagrees with the host")
+    # (c)
+    p, p_erase, samples, batch = SI_ERASE
+    arms = {}
+    for heralded in (True, False):
+        before = device_uf_cuda.launches
+        t0 = time.perf_counter()
+        r = erasure.erasure_phenomenological_error_rate(
+            code, p, p_erase, rounds=SI_D, samples=samples, batch=batch,
+            seed=SI_SEED, heralded=heralded, decoder="device", device=dev)
+        r["wall_s"] = time.perf_counter() - t0
+        r["failures"] = round(r["logical_fail"] * r["samples"])
+        r["k1_launches"] = device_uf_cuda.launches - before
+        arms["heralded" if heralded else "blind"] = r
+    out["erasure"] = arms
+    log(f"path 9 (c): erasure_phenomenological_error_rate d={SI_D} "
+        f"R={SI_D} p={p} p_erase={p_erase} samples={samples} batch={batch} "
+        f"decoder='device': heralded {arms['heralded']['failures']} "
+        f"failures ({arms['heralded']['logical_fail']:.6f}, "
+        f"{arms['heralded']['wall_s']:.3f} s, K1 launches "
+        f"{arms['heralded']['k1_launches']}: per-shot weights run the "
+        f"generic decoder), blind {arms['blind']['failures']} "
+        f"({arms['blind']['logical_fail']:.6f}, "
+        f"{arms['blind']['wall_s']:.3f} s, K1 launches "
+        f"{arms['blind']['k1_launches']})")
+    if arms["heralded"]["failures"] > arms["blind"]["failures"]:
+        raise RuntimeError("heralded erasure failed more shots than blind")
+    if arms["blind"]["k1_launches"] <= 0:
+        raise RuntimeError("the blind erasure arm did not launch K1")
+    # (d)
+    p, p_leak, rounds, samples, batch = SI_LEAK
+    arms = {}
+    for name, kw in (("heralded", {"heralded": True}),
+                     ("calibrated", {"heralded": False, "calibrated": True}),
+                     ("blind", {"heralded": False})):
+        before = device_uf_cuda.launches
+        t0 = time.perf_counter()
+        r = leakage.leakage_memory_experiment(
+            code, p, p_leak, rounds=rounds, samples=samples, batch=batch,
+            seed=SI_SEED, decoder="device", device=dev, **kw)
+        r["wall_s"] = time.perf_counter() - t0
+        r["failures"] = round(r["logical_fail"] * r["samples"])
+        r["k1_launches"] = device_uf_cuda.launches - before
+        arms[name] = r
+    expect = float(leakage.expected_leak_profile(p_leak, 0.2, rounds).mean())
+    log(f"path 9 (d): leakage_memory_experiment d={SI_D} R={rounds} p={p} "
+        f"p_leak={p_leak} samples={samples} decoder='device': " + ", ".join(
+            f"{k} {v['failures']} failures ({v['logical_fail']:.6f}, "
+            f"{v['wall_s']:.3f} s, K1 launches {v['k1_launches']})"
+            for k, v in arms.items())
+        + f"; leak fraction {arms['heralded']['leak_fraction']:.6f} (rounds "
+        f"and the final layer) beside expected_leak_profile's mean "
+        f"{expect:.6f} (rounds)")
+    rounds, batch, p_leak = SI_LEAK_CIRCUIT
+    nm = NoiseModel(p_gate2=1e-3, p_meas=2e-3, p_reset=1e-3)
+    circ = {}
+    for heralded in (True, False):
+        t0 = time.perf_counter()
+        r = leakage.leakage_circuit_memory(
+            code, rounds=rounds, noise=nm, p_leak=p_leak, batch=batch,
+            seed=SI_SEED, heralded=heralded, device=dev)
+        r["wall_s"] = time.perf_counter() - t0
+        circ["heralded" if heralded else "blind"] = r
+    expect_c = float(leakage.expected_leak_profile(p_leak, 0.2,
+                                                   rounds).mean())
+    log(f"path 9 (d): leakage_circuit_memory d={SI_D} R={rounds} B={batch} "
+        f"p_leak={p_leak}: word_fail heralded "
+        f"{circ['heralded']['word_fail']:.6f} "
+        f"({circ['heralded']['wall_s']:.3f} s), blind "
+        f"{circ['blind']['word_fail']:.6f} ({circ['blind']['wall_s']:.3f} "
+        f"s); leak fraction {circ['heralded']['leak_fraction']:.6f} beside "
+        f"expected_leak_profile's mean {expect_c:.6f}")
+    for r in list(arms.values()) + list(circ.values()):
+        if not 0.0 <= r.get("logical_fail", r.get("word_fail")) < 0.05:
+            raise RuntimeError(f"implausible leakage result {r}")
+    out["leakage"] = {"memory": arms, "expected_leak_fraction": expect,
+                      "circuit": circ,
+                      "expected_leak_fraction_circuit": expect_c}
+    # (e)
+    p, batch, cpu_slice = SI_MLD
+    h5 = np.array([[1, 1, 1, 0, 0], [0, 1, 1, 1, 0], [0, 0, 1, 1, 1]],
+                  np.uint8)
+    hgp = families.hypergraph_product(h5, h5, distance=3)
+    gen = torch.Generator(device=dev).manual_seed(SI_SEED)
+    x_err = (torch.rand((batch, hgp.n), generator=gen, device=dev) < p
+             ).to(torch.uint8)
+    h2 = torch.as_tensor(np.asarray(hgp.parity_check_c2, np.uint8),
+                         device=dev)
+    syn_t = gf2_torch.syndromes_dense(x_err, h2)
+    syn = syn_t.cpu().numpy()
+    truth = gf2_torch.mod2_matmul(x_err, torch.as_tensor(
+        np.asarray(hgp.z_operator_matrix(), np.uint8), device=dev).T
+    ).cpu().numpy()
+    ml_card = MLDecoder.for_code(hgp, p=p, device=dev)
+    ml_card.decode_flips(syn[:64])  # coset table to the card
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f_card, s_card = ml_card.decode_flips(syn, return_scores=True)
+    card_s = time.perf_counter() - t0
+    ml_cpu = MLDecoder.for_code(hgp, p=p, device="cpu")
+    t0 = time.perf_counter()
+    parts = [ml_cpu.decode_flips(syn[i:i + cpu_slice], return_scores=True)
+             for i in range(0, batch, cpu_slice)]
+    cpu_s = time.perf_counter() - t0
+    f_cpu = np.concatenate([a for a, _ in parts])
+    s_cpu = np.concatenate([b for _, b in parts], axis=1)
+
+    def ties(scores):
+        top = np.sort(scores, axis=0)
+        return top[-1] - top[-2] <= SI_MLD_TIE * np.abs(top[-1])
+
+    tie = ties(s_card) | ties(s_cpu)
+    differ = (f_card != f_cpu).any(axis=1)
+    llr = torch.full((batch, hgp.n), math.log(p / (1 - p)),
+                     dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f_fn = ml_card.device_decode_fn()(syn_t, llr).cpu().numpy()
+    fn_s = time.perf_counter() - t0
+    fn_differ = int((f_fn != f_card).any(axis=1).sum())
+    fail = float(((f_card ^ truth).any(axis=1)).mean())
+    out["mld"] = {"code": f"[[{hgp.n},{hgp.k},3]] hypergraph product",
+                  "cosets": int(ml_card._coset.shape[0]),
+                  "classes": 1 << hgp.k, "p": p, "syndromes": batch,
+                  "card_s": card_s, "cpu_s": cpu_s,
+                  "device_decode_fn_s": fn_s, "differ": int(differ.sum()),
+                  "ties": int(tie.sum()),
+                  "differ_outside_ties": int((differ & ~tie).sum()),
+                  "device_decode_fn_differ": fn_differ, "word_fail": fail}
+    log(f"path 9 (e): MLDecoder [[{hgp.n},{hgp.k},3]] hypergraph product "
+        f"({out['mld']['cosets']} cosets x {out['mld']['classes']} "
+        f"classes) p={p} on {batch} syndromes: card {card_s:.3f} s, CPU "
+        f"{cpu_s:.3f} s; flips differ on {out['mld']['differ']} shots, "
+        f"{out['mld']['ties']} shots tie (best two class scores within "
+        f"{SI_MLD_TIE:g} relative), {out['mld']['differ_outside_ties']} "
+        f"differ outside the ties; device_decode_fn against decode_flips "
+        f"on the card: {fn_differ} shots differ ({fn_s:.3f} s); ML word "
+        f"failure {fail:.6f}")
+    if out["mld"]["differ_outside_ties"] or fn_differ:
+        raise RuntimeError("the ML decoder disagrees: card against CPU, or "
+                           "device_decode_fn against decode_flips")
+    out["k1_launches"] = device_uf_cuda.launches
+    out["k1_chunk_launches"] = device_uf_cuda.chunk_launches
+    out["wall_s"] = time.perf_counter() - t_path
+    log(f"main path 9 launches: stencil kernel {out['k1_launches']} "
+        f"({out['k1_chunk_launches']} with chunks); path 9 wall "
+        f"{out['wall_s']:.1f} s")
+    if out["k1_launches"] <= 0:
+        raise RuntimeError("path 9 did not launch K1")
+    return out
 
 
 def main() -> int:
@@ -1317,6 +1614,11 @@ def main() -> int:
     #    torch on the card (no hand kernel is on this path)
     qldpc = path8(dev)
 
+    # -- 8g. main path 9: per-shot side-information decoding (belief-
+    #    matching, the fused soft decode, heralded erasure, leakage, exact
+    #    ML); K1 runs the erasure and leakage memories' static arms
+    sideinfo = path9(dev)
+
     # -- 9. kernel and plain-version times at the main paths' shapes
     defect_big = duf.stencil_defect(dg, dets_big)
     k1_ms = cuda_ms(lambda: device_uf_cuda.stencil_full(dg, defect_big), 20)
@@ -1586,6 +1888,7 @@ def main() -> int:
     lib_note = ("gf2_torch.syndromes_dense: one float32 torch.matmul with "
                 "casts, on the unpacked [B, n] bits (another layout)")
     print(json.dumps({"qldpc": qldpc}), flush=True)
+    print(json.dumps({"side_information": sideinfo}), flush=True)
     print(json.dumps({"kernels": [
         {"name": "uf_stencil_full", "route": "cuda",
          "source": "qcss_tpu_torch/csrc/uf_stencil_full.cu",
@@ -1613,7 +1916,15 @@ def main() -> int:
              "max_abs_err": k1p_err, "ms": k1p_ms,
              "plain_ms": k1p_plain_ms, "bound_ms": k1p_bound[0],
              "bound_by": k1p_bound[1], "library_ms": None,
-             "plan": k1p_plan, "work": k1p_need}},
+             "plan": k1p_plan, "work": k1p_need},
+         "side_information": {
+             "launches": sideinfo["k1_launches"],
+             "chunk_launches": sideinfo["k1_chunk_launches"],
+             "by_arm": {f"{exp}_{arm}": row["k1_launches"]
+                        for exp, rows in (
+                            ("erasure", sideinfo["erasure"]),
+                            ("leakage", sideinfo["leakage"]["memory"]))
+                        for arm, row in rows.items()}}},
         {"name": "uf_stencil_prop", "route": "cuda",
          "source": "qcss_tpu_torch/csrc/uf_stencil_staged.cu",
          "replaces": "qcss_tpu/decode/device_uf_pallas.py:74",

@@ -6,6 +6,7 @@ Prints JSON lines:
   {"bench": "uf_threshold_curve", "curve": {d: {p: word_fail}}, ...}
   {"bench": "uf_decode_throughput", "d": 11, "shots_per_sec": ...}
   {"bench": "mwpm_vs_uf", "d": 7, ...}
+  {"bench": "correlated_vs_independent", "d": 7, ...}
   {"bench": "uf_phenomenological_threshold_curve", ...}
   {"bench": "streaming_memory", "d": ..., "round_shots_per_sec": ...}
   {"bench": "uf_spacetime_memory", "d": 5, "rounds": 5, ...}
@@ -13,8 +14,7 @@ Prints JSON lines:
 The decoders are threaded host kernels (`native/uf_decoder.cc`,
 `native/mwpm_decoder.cc`); syndromes come from the batched sampler on the
 card (``--cpu``: on the CPU), so the reported shots/s is the host
-decoder's throughput. The reference's correlated two-pass line
-(`decode.correlated`) is not here: that module is not ported yet.
+decoder's throughput.
 
     python -m qcss_tpu_torch.benchmarks.uf_bench              # on the card
     python -m qcss_tpu_torch.benchmarks.uf_bench --cpu --dmax 5 --samples 4096
@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from qcss_tpu_torch.codes import families
+from qcss_tpu_torch.decode.correlated import correlated_logical_error_rate
 from qcss_tpu_torch.decode.mwpm import MWPMDecoder
 from qcss_tpu_torch.decode.streaming import (
     StreamingDecoder,
@@ -137,6 +138,23 @@ def main():
             "mwpm_native": mw._native is not None,
             "mwpm_logical_fail": float(np.mean((om & 1) != par)),
             "uf_logical_fail": float(np.mean((ou & 1) != par)),
+        }), flush=True)
+
+    # correlated two-pass decoding: Z-sector conditioned on X corrections
+    for d in (7,):
+        if d > args.dmax:
+            continue
+        code = families.rotated_surface(d)
+        r = correlated_logical_error_rate(
+            code, 0.08, samples=args.samples, batch=args.samples, seed=7,
+            device=device)
+        print(json.dumps({
+            "bench": "correlated_vs_independent", "d": d, "p": 0.08,
+            "z_fail_independent": r["z_fail"],
+            "z_fail_correlated": r["z_fail_corr"],
+            "word_fail_independent": r["word_fail"],
+            "word_fail_correlated": r["word_fail_corr"],
+            "samples": r["samples"],
         }), flush=True)
 
     # phenomenological multi-round threshold (p = q, rounds = d): the

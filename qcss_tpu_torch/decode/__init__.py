@@ -8,7 +8,9 @@ sliding-window streaming decoding on the host and the device
 (`streaming`, `device_streaming`), parallel-window decoding
 (`parallel_window`), and the qLDPC stack: batched BP+OSD (`bp`), the
 two-sector DEM (`dem2`), circuit-level Tanner graphs (`bp_dem`) and
-sliding-window BP (`bp_streaming`)."""
+sliding-window BP (`bp_streaming`), and per-shot side information:
+correlated two-pass matching (`correlated`), belief-matching
+(`belief`) and exact maximum-likelihood decoding (`mld`)."""
 
 from qcss_tpu_torch.decode.lut import (
     correct_errors,
@@ -42,6 +44,12 @@ from qcss_tpu_torch.decode.bp_streaming import (
     BPStreamingDecoder,
     CircuitBPStreamingDecoder,
 )
+from qcss_tpu_torch.decode.belief import BeliefMatchingDecoder
+from qcss_tpu_torch.decode.correlated import (
+    conditional_weights,
+    correlated_logical_error_rate,
+)
+from qcss_tpu_torch.decode.mld import MLDecoder, mld_logical_error_rate
 from qcss_tpu_torch.decode.device_sparse import (
     make_hybrid_obs_decoder,
     make_sparse_obs_decoder,
@@ -82,11 +90,13 @@ from qcss_tpu_torch.decode import classical
 
 __all__ = [
     "BPDecoder",
+    "BeliefMatchingDecoder",
     "BPStreamingDecoder",
     "CircuitBPStreamingDecoder",
     "CircuitTanner",
     "DeviceStreamingDecoder",
     "DeviceUFDecoder",
+    "MLDecoder",
     "MWPMDecoder",
     "MWPMOracle",
     "MatchingGraph",
@@ -102,7 +112,9 @@ __all__ = [
     "circuit_bp_decoder",
     "circuit_level_graph",
     "classical",
+    "conditional_weights",
     "correct_errors",
+    "correlated_logical_error_rate",
     "decode_corrections",
     "decode_stencil_fused",
     "decode_stencil_staged",
@@ -118,6 +130,7 @@ __all__ = [
     "make_sparse_obs_decoder",
     "mc_decode_rounds",
     "mc_decode_step",
+    "mld_logical_error_rate",
     "multiround_error_rate",
     "parallel_window_memory_rate",
     "sample_depolarizing",

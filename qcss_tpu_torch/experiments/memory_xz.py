@@ -36,10 +36,12 @@ sampler (`experiments.memory`). The reference splits six JAX keys a round
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
-from qcss_tpu_torch._cuda import resolve_device
+from qcss_tpu_torch._cuda import resolve_device, synchronize
 from qcss_tpu_torch.decode.dem2 import build_two_sector_dem
 from qcss_tpu_torch.decode.spacetime import detector_history
 from qcss_tpu_torch.decode.uf import UFDecoder
@@ -140,7 +142,8 @@ def xz_memory_experiment(code, *, rounds: int, noise: noise_mod.NoiseModel,
                          batch: int = 1 << 12, seed: int = 0,
                          n_threads: int | None = None,
                          belief: bool | int = False,
-                         device="cuda") -> dict[str, float]:
+                         device="cuda",
+                         profile: dict | None = None) -> dict[str, float]:
     """Run the two-sector memory, sampled on ``device`` (the card unless
     the caller asks for the CPU) from a generator seeded with ``seed``,
     and decode it on the host three ways on the same shots: X errors
@@ -148,12 +151,25 @@ def xz_memory_experiment(code, *, rounds: int, noise: noise_mod.NoiseModel,
     errors with the correlated re-weighting.
 
     Returns x_fail, z_fail / z_fail_corr, word_fail / word_fail_corr.
-    ``belief`` (belief-matching, `decode.belief`) is not ported yet."""
-    if belief:
-        raise NotImplementedError(
-            "belief-matching (decode/belief.py) is not ported yet: "
-            "ROADMAP.md, queue 1, item 5")
+    ``belief`` (True, or an int BP iteration count) additionally decodes
+    BOTH sectors with belief-matching (`decode.belief`: joint-graph BP
+    posteriors on ``device`` as per-shot matching weights) on the same
+    shots and adds x/z/word_fail_belief.
+
+    ``profile``, a dict, receives the wall seconds of each stage, the
+    device synchronized at each mark: 'sampler' (shots and detectors),
+    'dem_build', 'uf' (the three matching passes) and, with ``belief``,
+    'belief_build' (joint Tanner graph, DEM, decompositions), 'bp'
+    (posteriors), 'weights' (`_shot_weights_kernel`) and 'belief_uf'."""
     device = resolve_device(device)
+    marks = [time.perf_counter()]
+
+    def mark(key):
+        synchronize(device)
+        marks.append(time.perf_counter())
+        if profile is not None:
+            profile[key] = marks[-1] - marks[-2]
+
     hz = np.asarray(code.raw_parity_check_c2, np.uint8) & 1
     hx = np.asarray(code.raw_parity_check_c1, np.uint8) & 1
     rz, rx = hz.shape[0], hx.shape[0]
@@ -171,10 +187,12 @@ def xz_memory_experiment(code, *, rounds: int, noise: noise_mod.NoiseModel,
     final_x = (z_err.astype(np.int64) @ hx.T) & 1
     dets_z = detector_history(syns_z, final_z.astype(np.uint8))
     dets_x = detector_history(syns_x, final_x.astype(np.uint8))
+    mark("sampler")
 
     dem = build_two_sector_dem(code, rounds, noise)
     dec_x_err = UFDecoder(dem.graph_x_errors)
     dec_z_err = UFDecoder(dem.graph_z_errors)
+    mark("dem_build")
 
     sel, obs_z = dec_x_err.decode_batch(dets_z, n_threads=n_threads)
     _, obs_x = dec_z_err.decode_batch(dets_x, want_corrections=False,
@@ -197,7 +215,8 @@ def xz_memory_experiment(code, *, rounds: int, noise: noise_mod.NoiseModel,
     xf = (obs_z & 1) != par_x
     zf = (obs_x & 1) != par_z
     zfc = (obs_xc & 1) != par_z
-    return {
+    mark("uf")
+    out = {
         "x_fail": float(np.mean(xf)),
         "z_fail": float(np.mean(zf)),
         "z_fail_corr": float(np.mean(zfc)),
@@ -207,3 +226,21 @@ def xz_memory_experiment(code, *, rounds: int, noise: noise_mod.NoiseModel,
         "rounds": rounds,
         "pairs": int(dem.pairs.shape[0]),
     }
+    if belief:
+        from qcss_tpu_torch.decode.belief import BeliefMatchingDecoder
+
+        bm = BeliefMatchingDecoder(
+            code, rounds, noise,
+            iters=32 if belief is True else int(belief), device=device)
+        obs_zb, obs_xb = bm.decode_obs(dets_z, dets_x, n_threads=n_threads)
+        xfb = (obs_zb & 1) != par_x
+        zfb = (obs_xb & 1) != par_z
+        out["x_fail_belief"] = float(np.mean(xfb))
+        out["z_fail_belief"] = float(np.mean(zfb))
+        out["word_fail_belief"] = float(np.mean(xfb | zfb))
+        if profile is not None:
+            profile.update(belief_build=bm.timings["build"],
+                           bp=bm.timings["bp"],
+                           weights=bm.timings["weights"],
+                           belief_uf=bm.timings["uf"])
+    return out

@@ -127,6 +127,14 @@ def _thresholds_1q(p):
     return 2.0 * p / 3.0, p / 3.0, p
 
 
+def chunk_generators(seed: int, n: int, device) -> list[torch.Generator]:
+    """One generator per chunk where the reference splits one JAX key per
+    chunk (`jax.random.split(key(seed), n)[i]`): chunk i draws from a
+    generator on ``device`` seeded with (seed * 1000003 + i) mod 2^63."""
+    return [torch.Generator(device=device).manual_seed(
+        (int(seed) * 1000003 + i) % (1 << 63)) for i in range(n)]
+
+
 def flip_bits(bits: torch.Tensor, p, generator: torch.Generator) -> torch.Tensor:
     """Classical readout noise: flip each bit with probability p."""
     u = torch.rand(bits.shape, generator=generator, device=bits.device)

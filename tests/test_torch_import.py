@@ -28,9 +28,11 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_MODULES = [
     "qcss_tpu_torch",
     "qcss_tpu_torch._cuda",
+    "qcss_tpu_torch.benchmarks.belief_bench",
     "qcss_tpu_torch.benchmarks.bp_bench",
     "qcss_tpu_torch.benchmarks.device_uf_bench",
     "qcss_tpu_torch.benchmarks.profiling",
+    "qcss_tpu_torch.benchmarks.sideinfo_bench",
     "qcss_tpu_torch.benchmarks.pw_bench",
     "qcss_tpu_torch.benchmarks.staged_bench",
     "qcss_tpu_torch.benchmarks.steane_mc",
@@ -43,12 +45,14 @@ PORT_MODULES = [
     "qcss_tpu_torch.codes.distance",
     "qcss_tpu_torch.codes.symplectic",
     "qcss_tpu_torch.decode",
+    "qcss_tpu_torch.decode.belief",
     "qcss_tpu_torch.decode.blossom",
     "qcss_tpu_torch.decode.bp",
     "qcss_tpu_torch.decode.bp_dem",
     "qcss_tpu_torch.decode.bp_streaming",
     "qcss_tpu_torch.decode.calibrate",
     "qcss_tpu_torch.decode.classical",
+    "qcss_tpu_torch.decode.correlated",
     "qcss_tpu_torch.decode.dem2",
     "qcss_tpu_torch.decode.device_sparse",
     "qcss_tpu_torch.decode.device_sparse_cuda",
@@ -57,6 +61,7 @@ PORT_MODULES = [
     "qcss_tpu_torch.decode.device_uf_cuda",
     "qcss_tpu_torch.decode.device_uf_staged",
     "qcss_tpu_torch.decode.lut",
+    "qcss_tpu_torch.decode.mld",
     "qcss_tpu_torch.decode.montecarlo",
     "qcss_tpu_torch.decode.multiround",
     "qcss_tpu_torch.decode.mwpm",
@@ -65,9 +70,12 @@ PORT_MODULES = [
     "qcss_tpu_torch.decode.streaming",
     "qcss_tpu_torch.decode.sweep",
     "qcss_tpu_torch.decode.uf",
+    "qcss_tpu_torch.experiments.erasure",
+    "qcss_tpu_torch.experiments.leakage",
     "qcss_tpu_torch.experiments.memory",
     "qcss_tpu_torch.experiments.memory_qldpc",
     "qcss_tpu_torch.experiments.memory_xz",
+    "qcss_tpu_torch.experiments.soft",
     "qcss_tpu_torch.ftqc",
     "qcss_tpu_torch.ftqc.engines",
     "qcss_tpu_torch.native",
@@ -180,6 +188,16 @@ COPIED_DEFS = [
     ("decode/streaming.py", ["_window_graph", "StreamingDecoder"]),
     ("decode/bp.py", ["_osde_py", "_check_major_layout",
                       "open_window_tanner", "spacetime_tanner"]),
+    ("decode/correlated.py", ["conditional_weights"]),
+    ("decode/belief.py", ["_edge_var_table"]),
+    ("decode/mld.py", ["__all__", "_CHUNK", "_span_table"]),
+    ("experiments/soft.py", ["flip_prob", "sigma_for_flip_prob",
+                             "posterior_flip_prob", "_llr_weights",
+                             "_combine", "_meas_edge_ids"]),
+    ("experiments/erasure.py", ["ERASED_WEIGHT", "_pauli_weight",
+                                "_shot_weights", "_space_edge_index"]),
+    ("experiments/leakage.py", ["_space_edge_index",
+                                "expected_leak_profile"]),
 ]
 
 

@@ -281,15 +281,20 @@ def test_xz_memory_decodes_reference_shots_identically(monkeypatch,
 
 def test_xz_memory_experiment():
     """The UF two-sector memory runs on the port (its rates are the
-    decoded counts of test_sampler_rates_match_reference); belief-matching
-    is not ported and says where it is queued."""
+    decoded counts of test_sampler_rates_match_reference); with
+    ``belief`` it decodes the same shots once more by belief-matching
+    (held against the reference in tests/test_torch_belief.py) and keeps
+    every other rate."""
     out = txz.xz_memory_experiment(tfam.steane(), rounds=2,
                                    noise=TNoise(**P), batch=512,
                                    device="cpu")
     assert 0 < out["word_fail"] < 0.5 and out["pairs"] > 0
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        txz.xz_memory_experiment(tfam.steane(), rounds=2, noise=TNoise(**P),
-                                 batch=8, belief=True, device="cpu")
+    bel = txz.xz_memory_experiment(tfam.steane(), rounds=2,
+                                   noise=TNoise(**P), batch=512,
+                                   belief=4, device="cpu")
+    assert {k: bel[k] for k in out} == out
+    assert bel["word_fail_belief"] == max(
+        bel["word_fail_belief"], bel["x_fail_belief"], bel["z_fail_belief"])
 
 
 def test_circuit_stream_matches_whole_history():
