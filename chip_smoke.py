@@ -121,6 +121,24 @@ the stencil kernel:
    and `device_decode_fn` equal to `decode_flips` on the card; K1's
    launches over the path and per arm; one JSON line
    `side_information`;
+   main path 10, lattice surgery and patch schedules (host union-find,
+   K1 and K2): (a) `xx_merge_memory`, `xx_merge_split_memory` (p=q=4e-3),
+   `surgery_cnot_memory`, `t_gadget_memory` and `parity_chain_memory`
+   (p=q=3e-3) at d = 5, 7, B=32768, sampled on the card and decoded on
+   the host (build, sample, read-back and decode seconds, peak memory),
+   each d=5 count held against BASELINE.md's rate by a two-sample 99.9%
+   test; (b) `schedule_memory_device` on `parity_chain_model(d)`,
+   p=q=3e-3, B=16384, 4 reps: 'dense' at d = 5, 7 (K1 must launch) and
+   'hybrid' at d=5 (K2 must launch), shots/s, each count against (a)'s
+   host decode of the same model; (c) `xx_merge_circuit_memory` (d=5,
+   uniform p=2e-3, B=8192: the frame sampler, then BP with the device
+   OSD; BP convergence, rates, time split); (d) the fault distances of
+   both T-gadget sectors at d = 3, 5 (every channel at d, each witness a
+   closed odd cycle) and of the parity chain at d = 3, 5, 7; K1's and
+   K2's launches over the path; then K1 at the chain's d=7 shape
+   (V=2689, O=10; its plan and work) and K2 at d=5 (d_max=48) against
+   their plain versions on the card's own detectors, timed; one JSON
+   line `surgery`;
 9. times each kernel, its plain version and (K6, K7) the dense matmul
    form at the main paths' shapes, beside each kernel's bound, checking
    each timed output against the plain version's; K9 and K2 through
@@ -214,6 +232,24 @@ SI_LEAK = (1e-3, 5e-3, 10, 1 << 15, 1 << 13)  # p, p_leak, R, samples, batch
 SI_LEAK_CIRCUIT = (10, 8192, 4e-3)  # R, batch, p_leak
 SI_MLD = (0.05, 8192, 2048)       # p, syndromes, CPU slice
 SI_MLD_TIE = 1e-5                 # relative gap of the best two class scores
+SURGERY_D = (5, 7)
+SURGERY_BATCH = 32768
+SURGERY_SEED = 1
+# (entry point, p = q, BASELINE.md's d=5 rates of the same configuration,
+# 32,768 shots each: accuracy references for the two-sample tests)
+SURGERY_RUNS = (
+    ("xx_merge_memory", 4e-3, {"m_fail": 0.00107, "logical_fail": 0.00058}),
+    ("xx_merge_split_memory", 4e-3, {"word_fail": 0.0014, "m_fail": 0.00073}),
+    ("surgery_cnot_memory", 3e-3, {"word_fail": 0.0027, "zc_fail": 0.00098,
+                                   "zt_fail": 0.0019}),
+    ("t_gadget_memory", 3e-3, {"gadget_fail": 0.00229}),
+    ("parity_chain_memory", 3e-3, {"word_fail": 0.00229}),
+)
+SURGERY_FUSED = (3e-3, 16384, 4)  # p = q, batch, reps
+SURGERY_FUSED_RUNS = ((5, "dense"), (7, "dense"), (5, "hybrid"))
+SURGERY_CIRCUIT = (5, 2e-3, 8192)  # d, uniform circuit noise, batch
+SURGERY_FD_T = (3, 5)             # the T gadget's sectors
+SURGERY_FD_CHAIN = (3, 5, 7)      # the parity chain
 Z999 = 3.2905
 
 
@@ -1027,6 +1063,307 @@ def path9(dev):
     return out
 
 
+def closed_odd_cycle(graph, wit, bit: int) -> bool:
+    """Every real detector of the edge list ``wit`` touched an even number
+    of times, and observable ``bit``'s labels sum to 1."""
+    import numpy as np
+
+    deg = np.zeros(graph.num_nodes, np.int64)
+    par = 0
+    for e in wit:
+        for x in graph.edges[e]:
+            if x >= 0:
+                deg[x] += 1
+        par ^= (int(graph.edge_obs[e]) >> bit) & 1
+    return bool((deg % 2 == 0).all()) and par == 1
+
+
+def path10(dev, int_ops_per_s):
+    """Main path 10, lattice surgery and patch schedules: (a) the bespoke
+    protocols (`xx_merge_memory`, `xx_merge_split_memory`,
+    `surgery_cnot_memory`, `t_gadget_memory`, `parity_chain_memory`) at
+    d = 5, 7, B = 32768, sampled on the card and decoded by the host
+    union-find, each d=5 count against BASELINE.md's rate; (b) the fused
+    schedule pipeline (`schedule_memory_device` on the parity chain: K1 at
+    d = 5, 7, K2 with K1 behind it at d=5), each count against (a)'s host
+    decode of the same model; (c) the circuit-level merge
+    (`xx_merge_circuit_memory`: the frame sampler, then BP with the device
+    OSD); (d) fault distances with witnesses. K1's and K2's launches are
+    counted over (a)-(d). Then, outside the count, K1 at the chain's d=7
+    shape (V=2689, O=10) and K2 at d=5 against their plain versions on
+    the card's own detectors, timed. Returns the rows and the kernels'
+    entries."""
+    import numpy as np
+    import torch
+
+    from qcss_tpu_torch.benchmarks import measure_sparse_bench as msb
+    from qcss_tpu_torch.benchmarks.profiling import cuda_ms
+    from qcss_tpu_torch.decode import device_sparse as dsp
+    from qcss_tpu_torch.decode import device_sparse_cuda, device_uf_cuda
+    from qcss_tpu_torch.decode import device_uf as duf
+    from qcss_tpu_torch.decode import fault_distance as fdist
+    from qcss_tpu_torch.decode.uf import UFDecoder
+    from qcss_tpu_torch.experiments import (
+        patches,
+        surgery,
+        surgery_circuit,
+        surgery_t,
+    )
+    from qcss_tpu_torch.sim.noise import NoiseModel
+
+    entry = {"xx_merge_memory": surgery.xx_merge_memory,
+             "xx_merge_split_memory": surgery.xx_merge_split_memory,
+             "surgery_cnot_memory": surgery.surgery_cnot_memory,
+             "t_gadget_memory": surgery_t.t_gadget_memory,
+             "parity_chain_memory": patches.parity_chain_memory}
+    t_path = time.perf_counter()
+    device_uf_cuda.launches = device_uf_cuda.chunk_launches = 0
+    device_sparse_cuda.launches = 0
+    out = {}
+    # (a)
+    B = SURGERY_BATCH
+    rows = {}
+    for d in SURGERY_D:
+        for name, p, ref in SURGERY_RUNS:
+            torch.cuda.reset_peak_memory_stats(dev)
+            prof = {}
+            t0 = time.perf_counter()
+            r = entry[name](d, p, batch=B, seed=SURGERY_SEED, device=dev,
+                            profile=prof)
+            r["wall_s"] = time.perf_counter() - t0
+            r["split_s"] = prof
+            r["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 2**30
+            fails = {k: v for k, v in r.items() if k.endswith("_fail")}
+            r["failures"] = {k: round(v * B) for k, v in fails.items()}
+            rows[f"{name} d={d}"] = r
+            log(f"path 10 (a): {name} d={d} p=q={p} B={B}: failures "
+                + ", ".join(f"{k} {r['failures'][k]} ({v:.6f})"
+                            for k, v in fails.items())
+                + f"; {r.get('detectors', r.get('detectors_m'))} detectors; "
+                f"wall {r['wall_s']:.3f} s; seconds: "
+                + ", ".join(f"{k} {v:.3f}" for k, v in prof.items())
+                + f"; peak memory {r['peak_mem_gb']:.3f} GiB")
+            if any(not 0.0 <= v < 0.05 for v in fails.values()):
+                raise RuntimeError(f"implausible surgery row {name} d={d}")
+            if d != 5:
+                continue
+            for key, rate in ref.items():
+                k_ref = round(rate * B)
+                ok, spread = two_sample_ok(r["failures"][key], B, k_ref, B)
+                log(f"path 10 (a): {name} d=5 {key} {r['failures'][key]} "
+                    f"against BASELINE.md's {rate} ({k_ref} of {B}): "
+                    f"allowed difference {spread:.6f}")
+                if not ok:
+                    raise RuntimeError(f"{name} d=5 {key} disagrees with "
+                                       f"BASELINE.md's rate")
+    out["protocols"] = rows
+    # (b)
+    p, batch, reps = SURGERY_FUSED
+    models = {d: patches.parity_chain_model(d) for d in SURGERY_D}
+    fused = {}
+    for d, kind in SURGERY_FUSED_RUNS:
+        model = models[d]
+        mean_d, d_max = patches._hybrid_load(model, p, p)
+        t0 = time.perf_counter()
+        # the first call builds the runner (device graph, sparse tables)
+        patches.schedule_memory_device(model, p, batch=batch, reps=1,
+                                       seed=SURGERY_SEED + 1,
+                                       device_decoder=kind, device=dev)
+        first_s = time.perf_counter() - t0
+        k1, k2 = device_uf_cuda.launches, device_sparse_cuda.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = patches.schedule_memory_device(model, p, batch=batch, reps=reps,
+                                           seed=SURGERY_SEED,
+                                           device_decoder=kind, device=dev)
+        r["wall_s"] = time.perf_counter() - t0
+        r["first_call_s"] = first_s
+        r["shots_per_sec"] = r["samples"] / r["wall_s"]
+        r["k1_launches"] = device_uf_cuda.launches - k1
+        r["k2_launches"] = device_sparse_cuda.launches - k2
+        r["mean_defects"], r["d_max"] = mean_d, d_max
+        r["failures"] = round(r["word_fail"] * r["samples"])
+        host = rows[f"parity_chain_memory d={d}"]
+        ok, spread = two_sample_ok(r["failures"], r["samples"],
+                                   host["failures"]["word_fail"], B)
+        fused[f"{kind} d={d}"] = r
+        log(f"path 10 (b): schedule_memory_device(parity_chain_model({d}), "
+            f"p=q={p}, batch={batch}, reps={reps}, '{kind}'): V="
+            f"{r['detectors']}, mean defects {mean_d:.2f} (d_max rule "
+            f"{d_max}); {r['shots_per_sec']:.1f} shots/s ({r['wall_s']:.3f} "
+            f"s; first call {first_s:.3f} s with the runner's build); word "
+            f"failures {r['failures']} ({r['word_fail']:.6f}) against the "
+            f"host decode's {host['failures']['word_fail']} of {B} (allowed "
+            f"difference {spread:.6f}); K1 launches {r['k1_launches']}, K2 "
+            f"launches {r['k2_launches']}")
+        if not ok:
+            raise RuntimeError(f"the fused '{kind}' pipeline at d={d} "
+                               f"disagrees with the host decode")
+        if kind == "dense" and r["k1_launches"] < reps:
+            raise RuntimeError(f"the dense pipeline at d={d} did not launch K1")
+        if kind == "hybrid" and r["k2_launches"] < reps:
+            raise RuntimeError(f"the hybrid pipeline at d={d} did not "
+                               f"launch K2")
+    out["fused"] = fused
+    # (c)
+    d, pc, cbatch = SURGERY_CIRCUIT
+    noise = NoiseModel(p_gate1=pc, p_gate2=pc, p_meas=pc, p_reset=pc)
+    prof = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    circ = surgery_circuit.xx_merge_circuit_memory(
+        d, noise, batch=cbatch, seed=SURGERY_SEED, device=dev, profile=prof)
+    circ["wall_s"] = time.perf_counter() - t0
+    circ["split_s"] = prof
+    circ["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    out["circuit"] = circ
+    log(f"path 10 (c): xx_merge_circuit_memory d={d} uniform p={pc} "
+        f"B={cbatch}: m_fail {circ['m_fail']:.6f}, logical_fail "
+        f"{circ['logical_fail']:.6f}, word_fail {circ['word_fail']:.6f} "
+        f"({round(circ['word_fail'] * cbatch)} shots), bp_converged "
+        f"{circ['bp_converged']:.6f}; {circ['detectors']} detectors, "
+        f"{circ['fault_vars']} fault variables; wall {circ['wall_s']:.3f} "
+        f"s; seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in prof.items())
+        + f"; peak memory {circ['peak_mem_gb']:.3f} GiB")
+    if not 0.0 <= circ["word_fail"] < 0.05 or circ["bp_converged"] < 0.5:
+        raise RuntimeError(f"implausible circuit-level surgery row {circ}")
+    # (d)
+    t0 = time.perf_counter()
+    dists = {}
+    for d in SURGERY_FD_T:
+        for sector, build in (("zz_merge_split",
+                               surgery_t.build_zz_merge_split),
+                              ("merge_readout_sector",
+                               surgery_t.build_merge_readout_sector)):
+            model = build(d, d, d, d)
+            for bit in range(model.obs.shape[0]):
+                dist, n_min, wit = fdist.observable_fault_distance(
+                    model.graph, bit, with_witness=True)
+                dists[f"t_gadget {sector} d={d} obs{bit}"] = [dist, n_min]
+                if dist != d or len(wit) != dist or not closed_odd_cycle(
+                        model.graph, wit, bit):
+                    raise RuntimeError(
+                        f"T gadget {sector} d={d} obs{bit}: fault distance "
+                        f"{dist}, witness of {len(wit)} edges")
+    for d in SURGERY_FD_CHAIN:
+        model = models.get(d) or patches.parity_chain_model(d)
+        for name, (dist, n_min) in fdist.model_fault_distances(
+                model).items():
+            dists[f"parity_chain d={d} {name}"] = [dist, n_min]
+            if dist != d:
+                raise RuntimeError(f"parity chain d={d} {name}: fault "
+                                   f"distance {dist}")
+    out["fault_distances"] = dists
+    out["fault_distance_s"] = time.perf_counter() - t0
+    log(f"path 10 (d): fault distances (distance, minimal sets' base "
+        f"vertices) " + ", ".join(f"{k} {v[0]} ({v[1]})"
+                                 for k, v in dists.items())
+        + f"; every T-gadget witness a closed odd cycle; "
+        f"{out['fault_distance_s']:.3f} s")
+    out["k1_launches"] = device_uf_cuda.launches
+    out["k1_chunk_launches"] = device_uf_cuda.chunk_launches
+    out["k2_launches"] = device_sparse_cuda.launches
+    out["wall_s"] = time.perf_counter() - t_path
+    log(f"main path 10 launches: stencil kernel {out['k1_launches']} "
+        f"({out['k1_chunk_launches']} with chunks), sparse kernel "
+        f"{out['k2_launches']}; path 10 wall {out['wall_s']:.1f} s")
+    if out["k1_launches"] <= 0 or out["k2_launches"] <= 0:
+        raise RuntimeError("path 10 did not launch K1 and K2")
+
+    # the fused pipeline's decoders against the host union-find on the same
+    # shots, reps batches each (information: both are union-find, and they
+    # may pick other matchings)
+    for d, kind in SURGERY_FUSED_RUNS:
+        decode = patches._device_decoder(models[d], p, p, kind, dev)
+        host_uf = UFDecoder(models[d].graph)
+        gen = torch.Generator(device=dev).manual_seed(SURGERY_SEED + 3)
+        n_dev = n_host = n_agree = 0
+        for _ in range(reps):
+            dets, ob = surgery._sample(
+                gen, p, p, batch, *surgery._model_tensors(models[d], dev))
+            flips = decode(dets)[0].cpu().numpy().astype(np.int64)
+            _, corr = host_uf.decode_batch(dets.cpu().numpy(),
+                                           want_corrections=False)
+            corr = corr.astype(np.int64)
+            truth = (ob.cpu().numpy().astype(np.int64)
+                     << np.arange(ob.shape[1])).sum(axis=1)
+            n_dev += int(((flips ^ truth) != 0).sum())
+            n_host += int(((corr ^ truth) != 0).sum())
+            n_agree += int((flips == corr).sum())
+        fused[f"{kind} d={d}"]["same_shots"] = {
+            "device_failures": n_dev, "host_failures": n_host,
+            "agreement": n_agree / (batch * reps)}
+        log(f"path 10 (b), outside the count: the '{kind}' decoder at d={d} "
+            f"against the host UFDecoder on the same {batch * reps} shots: "
+            f"word failures {n_dev} / {n_host}, observable flips agree on "
+            f"{n_agree / (batch * reps):.6f}")
+
+    # K1 at the chain's d=7 shape and K2 at d=5, on one batch of the card's
+    # own detectors each: against their plain versions bit for bit, timed
+    # (these launches are not the path's)
+    d_hi, d_lo = max(SURGERY_D), min(SURGERY_D)
+    gen = torch.Generator(device=dev).manual_seed(SURGERY_SEED + 2)
+    dg = duf.build_device_graph(models[d_hi].graph).to(dev)
+    dets_hi, _ = surgery._sample(gen, p, p, batch,
+                                 *surgery._model_tensors(models[d_hi], dev))
+    defect = duf.stencil_defect(dg, dets_hi)
+    pk, ak, _ = device_uf_cuda.stencil_full(dg, defect)
+    pp, ap, _ = duf._stencil_plain(dg, defect)
+    lab_k, conv_k = duf._stencil_labels(dg, defect, pk, ak)
+    lab_p, conv_p = duf._stencil_labels(dg, defect, pp, ap)
+    k1_err = max(max_abs(pk, pp), max_abs(ak, ap),
+                 max_abs(lab_k[0], lab_p[0]),
+                 max_abs(conv_k.to(torch.int32), conv_p.to(torch.int32)))
+    if k1_err or not bool(conv_k.all()):
+        raise RuntimeError(f"K1 disagrees with its plain version at the "
+                           f"parity chain's d={d_hi} shape (max abs err "
+                           f"{k1_err})")
+    V = defect.shape[1]
+    label = (f"B={batch} V={V} O={len(dg.stencil.deltas)} "
+             f"KB={dg.stencil.bmask.shape[0]} NC=0")
+    k1_ms = cuda_ms(lambda: device_uf_cuda.stencil_full(dg, defect), 10)
+    k1_plain_ms = cuda_ms(lambda: duf._stencil_plain(dg, defect), 1)
+    plan, need, bnd = k1_report(f"{label} (parity chain d={d_hi})",
+                                device_uf_cuda, duf, dg, defect,
+                                int_ops_per_s)
+    log(f"K1 at the parity chain's d={d_hi} shape {label}, deltas "
+        f"{dg.stencil.deltas}: == plain (packed, act, obs, converged) on "
+        f"the card's detectors; kernel {k1_ms:.4f} ms, plain "
+        f"{k1_plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+    if patches._hybrid_load(models[d_lo], p, p)[1] != msb.K2_DMAX:
+        raise RuntimeError(f"the hybrid's d_max at d={d_lo} is not "
+                           f"{msb.K2_DMAX}")
+    tables = dsp._tables_to(dsp.build_sparse_tables(models[d_lo].graph), dev)
+    dets_lo, _ = surgery._sample(gen, p, p, batch,
+                                 *surgery._model_tensors(models[d_lo], dev))
+    k2 = msb.k2_row(tables, dets_lo, 20, int_ops_per_s)
+    k2.update(d=d_lo, rounds=d_lo)
+    log(f"K2 at the parity chain's d={d_lo} shape B={batch} "
+        f"V={dets_lo.shape[1]} "
+        f"d_max={msb.K2_DMAX}: == plain on the card's detectors; wrapper "
+        f"{k2['ms']:.4f} ms, a launch in a graph {k2['hot_ms']:.4f} hot, "
+        f"{k2['cold_ms']:.4f} cold; plain {k2['plain_ms']:.3f} ms; bound "
+        f"{k2['bound_ms']:.4f} ms ({k2['bound_by']}); defects a shot "
+        f"{k2['defects_per_shot']}")
+    out["kernels"] = {
+        "K1": {"shape": f"{label} (parity chain d={d_hi}, path 10 (b))",
+               "launches": out["k1_launches"],
+               "by_run": {k: r["k1_launches"] for k, r in fused.items()},
+               "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
+               "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+               "plan": plan, "work": need},
+        "K2": {"shape": f"B={batch} V={dets_lo.shape[1]} d_max="
+                        f"{msb.K2_DMAX} (parity chain d={d_lo}, path 10 "
+                        f"(b))",
+               "launches": out["k2_launches"], "max_abs_err": 0,
+               **{k: k2[k] for k in (
+                   "ms", "host_ms", "hot_ms", "cold_ms", "plain_ms",
+                   "bound_ms", "bound_by", "library_ms", "bytes", "int_ops",
+                   "defects_per_shot", "events_per_shot", "sweeps_per_shot",
+                   "plan")}}}
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1619,6 +1956,11 @@ def main() -> int:
     #    ML); K1 runs the erasure and leakage memories' static arms
     sideinfo = path9(dev)
 
+    # -- 8h. main path 10: lattice surgery and patch schedules (the bespoke
+    #    protocols decoded on the host, the fused schedule pipeline on K1
+    #    and K2, the circuit-level merge, fault distances)
+    surgery_rows = path10(dev, int_ops_per_s)
+
     # -- 9. kernel and plain-version times at the main paths' shapes
     defect_big = duf.stencil_defect(dg, dets_big)
     k1_ms = cuda_ms(lambda: device_uf_cuda.stencil_full(dg, defect_big), 20)
@@ -1889,6 +2231,8 @@ def main() -> int:
                 "casts, on the unpacked [B, n] bits (another layout)")
     print(json.dumps({"qldpc": qldpc}), flush=True)
     print(json.dumps({"side_information": sideinfo}), flush=True)
+    surgery_kernels = surgery_rows.pop("kernels")
+    print(json.dumps({"surgery": surgery_rows}), flush=True)
     print(json.dumps({"kernels": [
         {"name": "uf_stencil_full", "route": "cuda",
          "source": "qcss_tpu_torch/csrc/uf_stencil_full.cu",
@@ -1924,7 +2268,8 @@ def main() -> int:
                         for exp, rows in (
                             ("erasure", sideinfo["erasure"]),
                             ("leakage", sideinfo["leakage"]["memory"]))
-                        for arm, row in rows.items()}}},
+                        for arm, row in rows.items()}},
+         "surgery": surgery_kernels["K1"]},
         {"name": "uf_stencil_prop", "route": "cuda",
          "source": "qcss_tpu_torch/csrc/uf_stencil_staged.cu",
          "replaces": "qcss_tpu/decode/device_uf_pallas.py:74",
@@ -1950,7 +2295,8 @@ def main() -> int:
              "ms", "host_ms", "hot_ms", "cold_ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms", "bytes", "int_ops",
              "defects_per_shot", "events_per_shot", "sweeps_per_shot",
-             "plan")}},
+             "plan")},
+         "surgery": surgery_kernels["K2"]},
         {"name": "syndromes_packed", "route": "cuda",
          "source": "qcss_tpu_torch/csrc/gf2_packed.cu",
          "replaces": "qcss_tpu/ops/pallas_gf2.py:51",

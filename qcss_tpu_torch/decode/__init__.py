@@ -10,7 +10,8 @@ sliding-window streaming decoding on the host and the device
 two-sector DEM (`dem2`), circuit-level Tanner graphs (`bp_dem`) and
 sliding-window BP (`bp_streaming`), and per-shot side information:
 correlated two-pass matching (`correlated`), belief-matching
-(`belief`) and exact maximum-likelihood decoding (`mld`)."""
+(`belief`) and exact maximum-likelihood decoding (`mld`); and the exact
+per-observable fault distance of a matching graph (`fault_distance`)."""
 
 from qcss_tpu_torch.decode.lut import (
     correct_errors,

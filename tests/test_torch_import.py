@@ -60,6 +60,7 @@ PORT_MODULES = [
     "qcss_tpu_torch.decode.device_streaming",
     "qcss_tpu_torch.decode.device_uf_cuda",
     "qcss_tpu_torch.decode.device_uf_staged",
+    "qcss_tpu_torch.decode.fault_distance",
     "qcss_tpu_torch.decode.lut",
     "qcss_tpu_torch.decode.mld",
     "qcss_tpu_torch.decode.montecarlo",
@@ -75,7 +76,11 @@ PORT_MODULES = [
     "qcss_tpu_torch.experiments.memory",
     "qcss_tpu_torch.experiments.memory_qldpc",
     "qcss_tpu_torch.experiments.memory_xz",
+    "qcss_tpu_torch.experiments.patches",
     "qcss_tpu_torch.experiments.soft",
+    "qcss_tpu_torch.experiments.surgery",
+    "qcss_tpu_torch.experiments.surgery_circuit",
+    "qcss_tpu_torch.experiments.surgery_t",
     "qcss_tpu_torch.ftqc",
     "qcss_tpu_torch.ftqc.engines",
     "qcss_tpu_torch.native",
@@ -198,6 +203,21 @@ COPIED_DEFS = [
                                 "_shot_weights", "_space_edge_index"]),
     ("experiments/leakage.py", ["_space_edge_index",
                                 "expected_leak_profile"]),
+    ("decode/fault_distance.py", ["model_fault_distances"]),
+    ("experiments/surgery.py", ["_solve_gf2", "XXMergeModel",
+                                "build_xx_merge", "build_xx_merge_split",
+                                "_graph_from_signatures",
+                                "build_surgery_cnot"]),
+    ("experiments/surgery_t.py", ["_vertical_geometry", "_match_partners",
+                                  "build_zz_merge_split",
+                                  "build_merge_readout_sector"]),
+    ("experiments/patches.py", ["Phase", "Readout", "ScheduleModel",
+                                "logical", "joint", "readout_bit",
+                                "readout_logical", "logical_at",
+                                "build_schedule", "parity_chain_model"]),
+    ("experiments/surgery_circuit.py", ["_x_extraction_ops", "_walk",
+                                        "CircuitMergeModel",
+                                        "build_xx_merge_circuit"]),
 ]
 
 
@@ -205,6 +225,17 @@ COPIED_DEFS = [
                          ids=[r for r, _ in COPIED_DEFS])
 def test_copied_definitions(rel, names):
     assert _segments(_port(rel), names) == _segments(_rewired(rel), names)
+
+
+def test_fault_distance_copied_up_to_the_witness():
+    # The witness is rebuilt by design (tests/test_torch_fault_distance.py:
+    # the reference keys hops by endpoints alone); the distance is the
+    # reference's text.
+    name = ["observable_fault_distance"]
+    cut = "    # witness:"
+    orig = _segments(_rewired("decode/fault_distance.py"), name)[name[0]]
+    port = _segments(_port("decode/fault_distance.py"), name)[name[0]]
+    assert port.split(cut)[0] == orig.split(cut)[0]
 
 
 def test_device_graph_builders_copied():
