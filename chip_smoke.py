@@ -139,6 +139,32 @@ the stencil kernel:
    (V=2689, O=10; its plan and work) and K2 at d=5 (d_max=48) against
    their plain versions on the card's own detectors, timed; one JSON
    line `surgery`;
+   main path 11, the compiled logical programs (`LogicalProgram`; K2 and
+   the generic decoder, K1 on the two-level memory's level-2 graph): (a)
+   the compiled CNOT at d=3, p=q=2e-3, B=2^15: bench.py's
+   `compiled_cnot_sparse` (decoder='device-uf-sparse', 4 reps after a
+   warm call with the same reps; K2 must launch) and decoder='device-uf'
+   at d = 3, 5 (their graphs have 18 and 34 edge offsets, past K1's 10,
+   so they decode in the generic plain decoder, as in the reference; the
+   reason is printed), shots/s and failures, each against the host
+   decode of the same model and the host decode against BASELINE.md's
+   rate (two-sample 99.9%); (b) `run_full` (both sectors, p=q=2e-3) of
+   CNOT(0,1); T(1); CNOT(1,2), standalone s, mx and the feedback program
+   at d = 3, 5, every channel beside BASELINE.md's rate, each d=5 word
+   failure below its d=3 one; (c) `run_circuit` at uniform p=1e-3: the
+   compiled CNOT at d=3 (B=16384) and d=5 (B=8192) against BASELINE.md's
+   rates, HZH and the feedback program at d=3 (the repaired init
+   injection may move their X-sector rates; printed beside BASELINE.md's);
+   (d) the two-level memory (d=3, k=3, rounds_l=3, p=q=4e-3),
+   decoder='device-uf' (8192 x 4; K1 must launch on level 2) and 'host'
+   (2048), level 2 well below level 1, and the route each level took;
+   (e) `run_compiled_protocol` for the compiled CNOT at d=3 on the card's
+   tableau, all four inputs: every detector zero, z0 = zc,
+   z1 = zt ^ zc; (f) `logical_resource_report` on (a)'s and (b)'s
+   points; the time split and peak memory of every part, K1's and K2's
+   launches over (a)-(e); then K2 on 1024 of the d=5 CNOT's detector rows
+   and K1 on 1024 level-2 rows against their plain versions, timed; one
+   JSON line `logical`;
 9. times each kernel, its plain version and (K6, K7) the dense matmul
    form at the main paths' shapes, beside each kernel's bound, checking
    each timed output against the plain version's; K9 and K2 through
@@ -250,6 +276,31 @@ SURGERY_FUSED_RUNS = ((5, "dense"), (7, "dense"), (5, "hybrid"))
 SURGERY_CIRCUIT = (5, 2e-3, 8192)  # d, uniform circuit noise, batch
 SURGERY_FD_T = (3, 5)             # the T gadget's sectors
 SURGERY_FD_CHAIN = (3, 5, 7)      # the parity chain
+# path 11, the compiled logical programs (BASELINE.md's rates beside them)
+LOGICAL_SEED = 1
+LOGICAL_CNOT = (2e-3, 1 << 15, 4)    # p = q, batch, reps: bench.py's sparse run
+LOGICAL_DENSE_D = (3, 5)             # decoder='device-uf', one batch each
+LOGICAL_CNOT_REF = {3: 0.0234, 5: 0.00195}  # compiled CNOT word failure
+# (name, patches, batch, BASELINE.md's rates at d = 3, 5), run_full, p=q=2e-3
+LOGICAL_OPS_P = 2e-3
+LOGICAL_OPS = (
+    ("cnot01_t1_cnot12", 3, 8192, {"word_fail": (0.0592, 0.00635),
+                                   "t1_m1_0_fail": (0.0100, 0.00134)}),
+    ("s", 1, 32768, {"word_fail": (0.0111, 0.00079),
+                     "s0_m1_0_fail": (0.0028, 0.00015),
+                     "s0_out_0_fail": (0.0067, 0.00052)}),
+    ("mx", 1, 32768, {"word_fail": (0.0026, 0.00028)}),
+    ("feedback", 1, 32768, {"word_fail": (0.0030, 0.00021)}),
+)
+# (name, d, batch, BASELINE.md's word failure), uniform circuit noise p=1e-3
+LOGICAL_CIRCUIT_P = 1e-3
+LOGICAL_CIRCUIT = (("cnot", 3, 16384, 0.0122), ("cnot", 5, 8192, 0.00195),
+                   ("hzh", 3, 16384, 3.7e-4), ("feedback", 3, 16384, 1.1e-3))
+LOGICAL_TWO_LEVEL = (3, 3, 3, 4e-3)  # d, k, rounds_l, p = q
+# (decoder, batch, reps, BASELINE.md's word failures l1, l2)
+LOGICAL_TWO_LEVEL_RUNS = (("device-uf", 8192, 4, (0.337, 0.035)),
+                          ("host", 2048, 1, (0.342, 0.047)))
+LOGICAL_PROTOCOL = ((0, 0, 131), (1, 0, 133), (0, 1, 132), (1, 1, 134))
 Z999 = 3.2905
 
 
@@ -392,6 +443,31 @@ def k1_report(label, device_uf_cuda, duf, dg, defect, int_ops_per_s):
                   + (st.kernel_chunk_tables.numel() if NC else 0))
     return plan, {"rounds": rounds, "candidate_reads": reads}, bound(
         nbytes, reads, int_ops_per_s)
+
+
+def k1_equal(duf, device_uf_cuda, dg, defect, where: str,
+             converged: bool = True):
+    """K1 against its plain version on one batch, bit for bit: the packed
+    labels, the activity, every chunk plane, the labels of every lane and
+    the converged flags. Raises, naming ``where``, when they differ or
+    (with ``converged``) when a row did not converge. Returns the max abs
+    difference (0) and the kernel's labels and converged flags."""
+    import torch
+
+    out_k = device_uf_cuda.stencil_full(dg, defect)
+    out_p = duf._stencil_plain(dg, defect)
+    lab_k, conv_k = duf._stencil_labels(dg, defect, *out_k)
+    lab_p, conv_p = duf._stencil_labels(dg, defect, *out_p)
+    planes = [(out_k[0], out_p[0]), (out_k[1], out_p[1]),
+              *zip(out_k[2], out_p[2]), *zip(lab_k, lab_p),
+              (conv_k.to(torch.int32), conv_p.to(torch.int32))]
+    err = max(max_abs(a, b) for a, b in planes)
+    if err or len(out_k[2]) != len(out_p[2]) or len(lab_k) != len(lab_p):
+        raise RuntimeError(f"K1 disagrees with its plain version {where} "
+                           f"(max abs err {err})")
+    if converged and not bool(conv_k.all()):
+        raise RuntimeError(f"K1 left rows unconverged {where}")
+    return err, lab_k, conv_k
 
 
 def tableau_slice(dev, int_ops_per_s):
@@ -1307,17 +1383,8 @@ def path10(dev, int_ops_per_s):
     dets_hi, _ = surgery._sample(gen, p, p, batch,
                                  *surgery._model_tensors(models[d_hi], dev))
     defect = duf.stencil_defect(dg, dets_hi)
-    pk, ak, _ = device_uf_cuda.stencil_full(dg, defect)
-    pp, ap, _ = duf._stencil_plain(dg, defect)
-    lab_k, conv_k = duf._stencil_labels(dg, defect, pk, ak)
-    lab_p, conv_p = duf._stencil_labels(dg, defect, pp, ap)
-    k1_err = max(max_abs(pk, pp), max_abs(ak, ap),
-                 max_abs(lab_k[0], lab_p[0]),
-                 max_abs(conv_k.to(torch.int32), conv_p.to(torch.int32)))
-    if k1_err or not bool(conv_k.all()):
-        raise RuntimeError(f"K1 disagrees with its plain version at the "
-                           f"parity chain's d={d_hi} shape (max abs err "
-                           f"{k1_err})")
+    k1_err = k1_equal(duf, device_uf_cuda, dg, defect,
+                      f"at the parity chain's d={d_hi} shape")[0]
     V = defect.shape[1]
     label = (f"B={batch} V={V} O={len(dg.stencil.deltas)} "
              f"KB={dg.stencil.bmask.shape[0]} NC=0")
@@ -1330,17 +1397,15 @@ def path10(dev, int_ops_per_s):
         f"{dg.stencil.deltas}: == plain (packed, act, obs, converged) on "
         f"the card's detectors; kernel {k1_ms:.4f} ms, plain "
         f"{k1_plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
-    if patches._hybrid_load(models[d_lo], p, p)[1] != msb.K2_DMAX:
-        raise RuntimeError(f"the hybrid's d_max at d={d_lo} is not "
-                           f"{msb.K2_DMAX}")
+    k2_dmax = patches._hybrid_load(models[d_lo], p, p)[1]
     tables = dsp._tables_to(dsp.build_sparse_tables(models[d_lo].graph), dev)
     dets_lo, _ = surgery._sample(gen, p, p, batch,
                                  *surgery._model_tensors(models[d_lo], dev))
-    k2 = msb.k2_row(tables, dets_lo, 20, int_ops_per_s)
+    k2 = msb.k2_row(tables, dets_lo, 20, int_ops_per_s, d_max=k2_dmax)
     k2.update(d=d_lo, rounds=d_lo)
     log(f"K2 at the parity chain's d={d_lo} shape B={batch} "
         f"V={dets_lo.shape[1]} "
-        f"d_max={msb.K2_DMAX}: == plain on the card's detectors; wrapper "
+        f"d_max={k2_dmax}: == plain on the card's detectors; wrapper "
         f"{k2['ms']:.4f} ms, a launch in a graph {k2['hot_ms']:.4f} hot, "
         f"{k2['cold_ms']:.4f} cold; plain {k2['plain_ms']:.3f} ms; bound "
         f"{k2['bound_ms']:.4f} ms ({k2['bound_by']}); defects a shot "
@@ -1353,9 +1418,406 @@ def path10(dev, int_ops_per_s):
                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
                "plan": plan, "work": need},
         "K2": {"shape": f"B={batch} V={dets_lo.shape[1]} d_max="
-                        f"{msb.K2_DMAX} (parity chain d={d_lo}, path 10 "
+                        f"{k2_dmax} (parity chain d={d_lo}, path 10 "
                         f"(b))",
                "launches": out["k2_launches"], "max_abs_err": 0,
+               **{k: k2[k] for k in (
+                   "ms", "host_ms", "hot_ms", "cold_ms", "plain_ms",
+                   "bound_ms", "bound_by", "library_ms", "bytes", "int_ops",
+                   "defects_per_shot", "events_per_shot", "sweeps_per_shot",
+                   "plan")}}}
+    return out
+
+
+def _logical_program(name: str, d: int):
+    """Path 11's programs, compiled on a d x d patch grid."""
+    from qcss_tpu_torch.experiments.logical import LogicalProgram
+
+    if name == "cnot":
+        return LogicalProgram(d, 2).cnot(0, 1)
+    if name == "cnot01_t1_cnot12":
+        return LogicalProgram(d, 3).cnot(0, 1).t(1).cnot(1, 2)
+    if name == "s":
+        return LogicalProgram(d, 1).s(0)
+    if name == "mx":
+        return LogicalProgram(d, 1).mx(0)
+    if name == "feedback":
+        return LogicalProgram(d, 1).mx(0).h(0).x_if(0, "mx0_0")
+    if name == "hzh":
+        return LogicalProgram(d, 1).h(0).z(0).h(0)
+    raise KeyError(name)
+
+
+def _k1_route(duf, graph) -> str | None:
+    """None when K1 decodes ``graph`` (a stencil graph), else why not, in
+    `device_uf.stencil_refusal`'s words: such graphs decode in the generic
+    plain decoder (`device_uf._decode_packed`)."""
+    why = duf.stencil_refusal(graph)
+    if why is None:
+        return None
+    return (f"the generic plain decoder: not a stencil graph (V="
+            f"{graph.num_nodes}: {why})")
+
+
+def path11(dev, int_ops_per_s):
+    """Main path 11, the compiled logical programs (`LogicalProgram`):
+    (a) the fused compiled CNOT, bench.py's `compiled_cnot_sparse`
+    (d=3, p=q=2e-3, B=2^15, 4 reps after a warm call with the same reps,
+    decoder='device-uf-sparse': K2 with the dense decoder behind it) and
+    decoder='device-uf' at d = 3, 5 (B=2^15), each against the host
+    decode of the same model; (b) the op set on the surgery tier
+    (`run_full`, both sectors: CNOT(0,1); T(1); CNOT(1,2), standalone s,
+    mx, the feedback program) at d = 3, 5; (c) the circuit tier
+    (`run_circuit`: the frame sampler, BP and the device OSD) for the
+    compiled CNOT at d = 3, 5 and HZH and the feedback program at d=3;
+    (d) the two-level memory (d=3, k=3, rounds_l=3, p=q=4e-3),
+    decoder='device-uf' and 'host'; (e) the protocol gold on the card's
+    tableau; (f) resource reports on (a)'s and (b)'s points. K1's and
+    K2's launches are counted over (a)-(e). Then, outside the count, K2
+    on the sparse run's rep-0 detectors (d=3, B=2^15, the hybrid's d_max)
+    and K1 on the two-level device run's rep-0 level-2 rows (B=8192)
+    against their plain versions, timed. Returns the rows and the
+    kernels' entries."""
+    import numpy as np
+    import torch
+
+    from qcss_tpu_torch.benchmarks import measure_sparse_bench as msb
+    from qcss_tpu_torch.benchmarks.profiling import cuda_ms
+    from qcss_tpu_torch.decode import device_sparse as dsp
+    from qcss_tpu_torch.decode import device_sparse_cuda, device_uf_cuda
+    from qcss_tpu_torch.decode import device_uf as duf
+    from qcss_tpu_torch.experiments import concatenated, patches, resources
+    from qcss_tpu_torch.experiments.protocol import run_compiled_protocol
+    from qcss_tpu_torch.sim.noise import NoiseModel, chunk_generators
+
+    t_path = time.perf_counter()
+    device_uf_cuda.launches = device_uf_cuda.chunk_launches = 0
+    device_sparse_cuda.launches = 0
+    out = {}
+
+    def counts():
+        return device_uf_cuda.launches, device_sparse_cuda.launches
+
+    def timed(fn):
+        """fn() with the wall seconds, peak memory (GiB) and K1 / K2
+        launches it took."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        k1, k2 = counts()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        r["wall_s"] = time.perf_counter() - t0
+        r["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        r["k1_launches"] = device_uf_cuda.launches - k1
+        r["k2_launches"] = device_sparse_cuda.launches - k2
+        return r
+
+    def seconds(prof):
+        return ", ".join(f"{k} {v:.3f}" for k, v in prof.items())
+
+    # (a)
+    t_part = time.perf_counter()
+    p, B, reps = LOGICAL_CNOT
+    cnot = {d: _logical_program("cnot", d) for d in LOGICAL_DENSE_D}
+    fused, host = {}, {}
+    for d in LOGICAL_DENSE_D:
+        prof = {}
+        r = timed(lambda: cnot[d].run(p, batch=B, seed=LOGICAL_SEED + 1,
+                                      device=dev, profile=prof))
+        r["split_s"] = prof
+        r["failures"] = round(r["word_fail"] * B)
+        host[d] = r
+        ok, spread = two_sample_ok(r["failures"], B,
+                                   round(LOGICAL_CNOT_REF[d] * B), B)
+        log(f"path 11 (a): compiled CNOT d={d} decoder='host' p=q={p} "
+            f"B={B}: word failures {r['failures']} ({r['word_fail']:.6f}; "
+            f"BASELINE.md {LOGICAL_CNOT_REF[d]}, allowed difference "
+            f"{spread:.6f}); {r['detectors']} detectors; wall "
+            f"{r['wall_s']:.3f} s ({seconds(prof)}); peak "
+            f"{r['peak_mem_gb']:.3f} GiB")
+        if not ok:
+            raise RuntimeError(f"the compiled CNOT at d={d} disagrees with "
+                               f"BASELINE.md's rate")
+    runs = [("sparse", 3, "device-uf-sparse", reps)] + [
+        ("dense", d, "device-uf", 1) for d in LOGICAL_DENSE_D]
+    for kind, d, decoder, n in runs:
+        model = cnot[d].build()
+        prof = {}
+        # the first call builds the model's runner; bench.py warms the
+        # sparse run with the same reps
+        first = timed(lambda: cnot[d].run(p, batch=B, seed=0,
+                                          decoder=decoder, reps=n,
+                                          device=dev, profile=prof))
+        r = timed(lambda: cnot[d].run(p, batch=B, seed=LOGICAL_SEED,
+                                      decoder=decoder, reps=n, device=dev))
+        r["first_call_s"] = first["wall_s"]
+        r["first_call_split_s"] = prof
+        r["shots_per_sec"] = r["samples"] / r["wall_s"]
+        r["failures"] = round(r["word_fail"] * r["samples"])
+        r["k1_launches"] += first["k1_launches"]
+        r["k2_launches"] += first["k2_launches"]
+        r["mean_defects"], r["d_max"] = patches._hybrid_load(model, p, p)
+        r["k1_route"] = _k1_route(duf, model.graph)
+        fused[f"{kind} d={d}"] = r
+        ok, spread = two_sample_ok(r["failures"], r["samples"],
+                                   host[d]["failures"], B)
+        log(f"path 11 (a): compiled CNOT d={d} decoder='{decoder}' p=q={p} "
+            f"B={B} x {n}: {r['shots_per_sec']:.1f} shots/s ({r['wall_s']:.3f} "
+            f"s; first call {first['wall_s']:.3f} s: {seconds(prof)}); word "
+            f"failures {r['failures']} ({r['word_fail']:.6f}) against the "
+            f"host decode's {host[d]['failures']} of {B} (allowed difference "
+            f"{spread:.6f}); mean defects {r['mean_defects']:.2f} (d_max "
+            f"rule {r['d_max']}); K1 launches {r['k1_launches']}, K2 "
+            f"launches {r['k2_launches']}; peak {r['peak_mem_gb']:.3f} GiB")
+        if not ok:
+            raise RuntimeError(f"the fused '{decoder}' pipeline at d={d} "
+                               f"disagrees with the host decode")
+        if kind == "sparse" and r["k2_launches"] < 2 * n:
+            raise RuntimeError("the sparse compiled CNOT did not launch K2")
+        if r["k1_route"] is None and kind == "dense" \
+                and r["k1_launches"] < 2 * n:
+            raise RuntimeError(f"the dense compiled CNOT at d={d} did not "
+                               f"launch K1")
+        if r["k1_route"] is not None:
+            log(f"path 11 (a): K1 is not launched by the compiled CNOT at "
+                f"d={d} ({kind}): it decodes in {r['k1_route']}, as in the "
+                f"reference (device_uf.py:170-186)")
+    out["cnot"] = {"host": {f"d={d}": r for d, r in host.items()},
+                   "fused": fused, "wall_s": time.perf_counter() - t_part}
+
+    # (b)
+    t_part = time.perf_counter()
+    ops, ops_progs = {}, {}
+    for name, _, batch, refs in LOGICAL_OPS:
+        for d in (3, 5):
+            prog = _logical_program(name, d)
+            ops_progs[(name, d)] = prog
+            prof = {}
+            r = timed(lambda: prog.run_full(LOGICAL_OPS_P, batch=batch,
+                                            seed=LOGICAL_SEED, device=dev,
+                                            profile=prof))
+            r["split_s"] = prof
+            r["failures"] = {k: round(v * batch) for k, v in r.items()
+                             if k.endswith("_fail")}
+            ops[f"{name} d={d}"] = r
+            log(f"path 11 (b): {name} d={d} run_full p=q={LOGICAL_OPS_P} "
+                f"B={batch}: failures " + ", ".join(
+                    f"{k} {n} ({r[k]:.6f}"
+                    + (f"; BASELINE.md {refs[k][d == 5]}" if k in refs
+                       else "") + ")" for k, n in r["failures"].items())
+                + f"; detectors {r['detectors_z']} + "
+                f"{r.get('detectors_x', 0)}; wall {r['wall_s']:.3f} s "
+                f"({seconds(prof)}); peak {r['peak_mem_gb']:.3f} GiB")
+            if not 0.0 <= r["word_fail"] < 0.2:
+                raise RuntimeError(f"implausible run_full row {name} d={d}")
+        if not ops[f"{name} d=5"]["word_fail"] < ops[f"{name} d=3"][
+                "word_fail"]:
+            raise RuntimeError(f"{name}: the d=5 word failure is not below "
+                               f"the d=3 one")
+    out["op_set"] = ops
+    out["op_set_wall_s"] = time.perf_counter() - t_part
+
+    # (c)
+    t_part = time.perf_counter()
+    pc = LOGICAL_CIRCUIT_P
+    noise = NoiseModel(p_gate1=pc, p_gate2=pc, p_meas=pc, p_reset=pc)
+    circ = {}
+    for name, d, batch, ref in LOGICAL_CIRCUIT:
+        prog = _logical_program(name, d)
+        prof = {}
+        r = timed(lambda: prog.run_circuit(noise, batch=batch,
+                                           seed=LOGICAL_SEED, device=dev,
+                                           profile=prof))
+        r["split_s"] = prof
+        circ[f"{name} d={d}"] = r
+        moved = ("above" if r["word_fail"] > ref else "at or below")
+        log(f"path 11 (c): {name} d={d} run_circuit uniform p={pc} "
+            f"B={batch}: word_fail {r['word_fail']:.6f} ({moved} BASELINE.md"
+            f"'s {ref}); " + ", ".join(
+                f"{k} {v:.6f}" for k, v in r.items()
+                if k.endswith("_fail") and k != "word_fail")
+            + f"; bp_converged {r.get('bp_converged', 1.0):.6f}"
+            + (f" / x {r['bp_converged_x']:.6f}" if "bp_converged_x" in r
+               else "")
+            + f"; detectors {r.get('detectors')} (x {r.get('detectors_x')}),"
+            f" fault variables {r.get('fault_vars')} (x "
+            f"{r.get('fault_vars_x')}); wall {r['wall_s']:.3f} s "
+            f"({seconds(prof)}); peak {r['peak_mem_gb']:.3f} GiB")
+        if not 0.0 <= r["word_fail"] < 0.05 or min(
+                r.get("bp_converged", 1.0), r.get("bp_converged_x", 1.0)) < 0.5:
+            raise RuntimeError(f"implausible circuit-tier row {name} d={d}")
+        if name == "cnot":
+            # one sector (the repaired init injection does not touch it)
+            k_got, k_ref = round(r["word_fail"] * batch), round(ref * batch)
+            ok, spread = two_sample_ok(k_got, batch, k_ref, batch)
+            log(f"path 11 (c): cnot d={d}: {k_got} word failures against "
+                f"BASELINE.md's {k_ref} of {batch} (allowed difference "
+                f"{spread:.6f})")
+            if not ok:
+                raise RuntimeError(f"the circuit-tier CNOT at d={d} "
+                                   f"disagrees with BASELINE.md's rate")
+    out["circuit"] = circ
+    out["circuit_wall_s"] = time.perf_counter() - t_part
+
+    # (d)
+    t_part = time.perf_counter()
+    tl_d, tl_k, tl_rl, tl_p = LOGICAL_TWO_LEVEL
+    _, model_l1, perm = concatenated._build_program(tl_d, tl_k, tl_rl)
+    graph_l2 = concatenated.repetition_spacetime_graph(tl_k, tl_rl + 1)
+    routes = {"level 1": _k1_route(duf, model_l1.graph),
+              "level 2": _k1_route(duf, graph_l2)}
+    two = {}
+    for decoder, batch, n, (r1, r2) in LOGICAL_TWO_LEVEL_RUNS:
+        r = timed(lambda: concatenated.logical_repetition_memory(
+            tl_d, tl_k, tl_rl, tl_p, batch=batch, reps=n, seed=LOGICAL_SEED,
+            decoder=decoder, device=dev))
+        two[decoder] = r
+        log(f"path 11 (d): two-level memory d={tl_d} k={tl_k} rounds_l="
+            f"{tl_rl} p=q={tl_p} decoder='{decoder}' {r['samples']} shots: word_fail "
+            f"l1 {r['word_fail_l1']:.6f} -> l2 {r['word_fail_l2']:.6f} "
+            f"(BASELINE.md {r1} -> {r2}); wall {r['wall_s']:.3f} s; K1 "
+            f"launches {r['k1_launches']}; peak {r['peak_mem_gb']:.3f} GiB")
+        if not r["word_fail_l2"] < r["word_fail_l1"] / 3:
+            raise RuntimeError(f"two-level '{decoder}': level 2 does not "
+                               f"correct")
+    for lvl, why in routes.items():
+        log(f"path 11 (d): {lvl} of the device run decodes in "
+            + ("K1 (a stencil graph)" if why is None else why))
+    if routes["level 2"] is None and two["device-uf"]["k1_launches"] < \
+            LOGICAL_TWO_LEVEL_RUNS[0][2]:
+        raise RuntimeError("the two-level device run did not launch K1 on "
+                           "its level-2 graph")
+    two["k1_routes"] = routes
+    two["wall_s"] = time.perf_counter() - t_part
+    out["two_level"] = two
+
+    # (e)
+    t_part = time.perf_counter()
+    prog = _logical_program("cnot", 3)
+    model = prog.build(with_recipe=True)
+    recipe = model.meta["recipe"]
+    gold = []
+    for zc, zt, seed in LOGICAL_PROTOCOL:
+        flips = []   # X̄ on data patch i: its block's first column
+        for i, on in ((0, zc), (1, zt)):
+            r0, c0 = prog._origin((0, 2 * i))
+            if on:
+                flips += [(r0 + r) * prog.cols_q + c0 for r in range(3)]
+        t0 = time.perf_counter()
+        o = run_compiled_protocol(
+            prog, model, torch.Generator(device=dev).manual_seed(seed),
+            prep_x_flips=flips, device=dev).astype(np.int64)
+        wall = time.perf_counter() - t0
+        n_dets = int(((recipe["D"].astype(np.int64) @ o) & 1).sum())
+        vals = dict(zip(model.meta["obs_names"],
+                        ((recipe["obs"].astype(np.int64) @ o) & 1).tolist()))
+        gold.append({"zc": zc, "zt": zt, "seed": seed, "dets_fired": n_dets,
+                     **vals, "wall_s": wall})
+        log(f"path 11 (e): protocol gold, compiled CNOT d=3 on the card's "
+            f"tableau, zc={zc} zt={zt} (generator seed {seed}): "
+            f"{n_dets} detectors fired, z0={vals['z0']} z1={vals['z1']}; "
+            f"{wall:.3f} s")
+        if n_dets or vals["z0"] != zc or vals["z1"] != zt ^ zc:
+            raise RuntimeError(f"protocol gold fails at zc={zc} zt={zt}")
+    out["protocol"] = {"runs": gold, "wall_s": time.perf_counter() - t_part}
+
+    out["k1_launches"], out["k2_launches"] = counts()
+    out["k1_chunk_launches"] = device_uf_cuda.chunk_launches
+    log(f"main path 11 launches: stencil kernel {out['k1_launches']} "
+        f"({out['k1_chunk_launches']} with chunks), sparse kernel "
+        f"{out['k2_launches']}")
+    if out["k1_launches"] <= 0 or out["k2_launches"] <= 0:
+        raise RuntimeError("path 11 did not launch K1 and K2")
+
+    # (f) resource reports on (a)'s and (b)'s points (the programs built
+    # above: their models are memoized)
+    reports = {}
+    for label, progs, fails in (
+            ("compiled CNOT", cnot,
+             {d: host[d]["word_fail"] for d in LOGICAL_DENSE_D}),
+            ("CNOT(0,1); T(1); CNOT(1,2)",
+             {d: ops_progs[("cnot01_t1_cnot12", d)] for d in (3, 5)},
+             {d: ops[f"cnot01_t1_cnot12 d={d}"]["word_fail"]
+              for d in (3, 5)})):
+        rep = resources.logical_resource_report(
+            progs.__getitem__, LOGICAL_CNOT[0], target=1.5 * fails[5],
+            fails=fails)
+        rep["d_for_1e-9"] = resources.required_distance(1e-9, rep["fit"])
+        reports[label] = rep
+        st = rep["at_d_star"]
+        log(f"path 11 (f): {label}: Lambda {rep['fit']['Lambda']:.3f} from "
+            f"{fails}; d* {rep['d_star']} for a budget of "
+            f"{rep['target']:.6f} ({st['grid_qubits']} grid qubits, "
+            f"{st['total_rounds']} rounds, spacetime volume "
+            f"{st['spacetime_volume']}, {st['fault_locations']} fault "
+            f"locations, T count {st['t_count']}); extrapolated d for a "
+            f"1e-9 budget {rep['d_for_1e-9']}")
+    out["resources"] = reports
+    out["wall_s"] = time.perf_counter() - t_path
+    log(f"path 11 wall {out['wall_s']:.1f} s")
+
+    # K2 and K1 against their plain versions bit for bit, timed, on the
+    # rows of the first rep of the runs that launched them (these launches
+    # are not the path's): K2 on the sparse compiled CNOT's d=3 detectors
+    # at the hybrid's d_max and batch, K1 on the two-level device run's
+    # level-2 rows
+    model3 = cnot[3].build()
+    tables = dsp.build_sparse_tables(model3.graph)
+    # the hybrid's d_max, capped as `sparse_decoder_from_tables` caps it
+    d_max = min(fused["sparse d=3"]["d_max"], tables.num_nodes)
+    tables = dsp._tables_to(tables, dev)
+    gen = chunk_generators(LOGICAL_SEED, 1, dev)[0]
+    dets3, _ = patches._sample(gen, p, p, B,
+                               *patches._model_tensors(model3, dev))
+    k2 = msb.k2_row(tables, dets3, 20, int_ops_per_s, d_max=d_max)
+    log(f"K2 at the sparse compiled CNOT's shape B={B} V={dets3.shape[1]} "
+        f"d_max={d_max} (its rep 0's detectors): == plain; wrapper "
+        f"{k2['ms']:.4f} ms, a launch in a graph {k2['hot_ms']:.4f} hot, "
+        f"{k2['cold_ms']:.4f} cold; plain {k2['plain_ms']:.3f} ms; bound "
+        f"{k2['bound_ms']:.4f} ms ({k2['bound_by']}); defects a shot "
+        f"{k2['defects_per_shot']}; plan {k2['plan']}")
+    batch2, n2 = LOGICAL_TWO_LEVEL_RUNS[0][1:3]
+    _, level2, _ = concatenated._two_level_pipeline(
+        tl_d, tl_k, tl_rl, tl_p, tl_p, batch=batch2, layout="chain",
+        device=dev)
+    dets2 = level2(chunk_generators(LOGICAL_SEED, n2, dev)[0])[1]
+    dg2 = duf.build_device_graph(graph_l2).to(dev)
+    defect = duf.stencil_defect(dg2, dets2)
+    k1_err = k1_equal(duf, device_uf_cuda, dg2, defect,
+                      "on the two-level memory's level-2 rows")[0]
+    rows, V2 = defect.shape
+    label = (f"B={rows} V={V2} O={len(dg2.stencil.deltas)} "
+             f"KB={dg2.stencil.bmask.shape[0]} NC=0")
+    k1_ms = cuda_ms(lambda: device_uf_cuda.stencil_full(dg2, defect), 20)
+    k1_plain_ms = cuda_ms(lambda: duf._stencil_plain(dg2, defect), 2)
+    plan, need, bnd = k1_report(f"{label} (two-level memory, level 2)",
+                                device_uf_cuda, duf, dg2, defect,
+                                int_ops_per_s)
+    log(f"K1 on the level-2 graph {label}, deltas {dg2.stencil.deltas}: == "
+        f"plain (packed, act, labels, converged) on the device run's rep 0 "
+        f"({int(dets2.sum())} defects over {rows} shots); kernel "
+        f"{k1_ms:.4f} ms, plain {k1_plain_ms:.3f} ms, bound {bnd[0]:.4f} "
+        f"ms ({bnd[1]})")
+    by_run = {k: {"k1": r["k1_launches"], "k2": r["k2_launches"]}
+              for k, r in fused.items()}
+    by_run["two-level device-uf"] = {
+        "k1": two["device-uf"]["k1_launches"],
+        "k2": two["device-uf"]["k2_launches"]}
+    out["kernels"] = {
+        "K1": {"shape": f"{label} (two-level memory, level 2, path 11 (d))",
+               "launches": out["k1_launches"],
+               "by_run": {k: v["k1"] for k, v in by_run.items()},
+               "not_launched": {k: r["k1_route"] for k, r in fused.items()
+                                if r["k1_route"] is not None},
+               "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
+               "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+               "plan": plan, "work": need},
+        "K2": {"shape": f"B={B} V={dets3.shape[1]} d_max={d_max} "
+                        f"(sparse compiled CNOT d=3, path 11 (a))",
+               "launches": out["k2_launches"],
+               "by_run": {k: v["k2"] for k, v in by_run.items()},
+               "max_abs_err": 0,
                **{k: k2[k] for k in (
                    "ms", "host_ms", "hot_ms", "cold_ms", "plain_ms",
                    "bound_ms", "bound_by", "library_ms", "bytes", "int_ops",
@@ -1483,20 +1945,8 @@ def main() -> int:
 
     # -- 3. K1 against its plain version
     defect = duf.stencil_defect(dg, dets)
-    packed_k, act_k, _ = device_uf_cuda.stencil_full(dg, defect)
-    packed_p, act_p, _ = duf._stencil_plain(dg, defect)
-    torch.cuda.synchronize()
-    lab_k, conv_k = duf._stencil_labels(dg, defect, packed_k, act_k)
-    lab_p, conv_p = duf._stencil_labels(dg, defect, packed_p, act_p)
-    k1_err = max(max_abs(packed_k, packed_p), max_abs(act_k, act_p),
-                 max_abs(lab_k[0], lab_p[0]))
-    if not (torch.equal(packed_k, packed_p) and torch.equal(act_k, act_p)
-            and torch.equal(lab_k[0], lab_p[0])
-            and torch.equal(conv_k, conv_p)):
-        raise RuntimeError(f"stencil kernel disagrees with its plain "
-                           f"version (max abs err {k1_err})")
-    if not bool(conv_k.all()):
-        raise RuntimeError("stencil kernel left shots unconverged")
+    k1_err, lab_k, conv_k = k1_equal(duf, device_uf_cuda, dg, defect,
+                                     f"on {CHECK_ROWS} rows")
     dg_cpu = dg.to("cpu")
     lab_c, conv_c = duf._decode_stencil(dg_cpu, dets.cpu())
     if not (torch.equal(lab_c[0], lab_k[0].cpu())
@@ -1685,21 +2135,9 @@ def main() -> int:
             raise RuntimeError(f"the d={D} {name} mid-window graph must "
                                f"carry spilled lanes")
         wdef = duf.stencil_defect(mid, win_rows[name].contiguous())
-        out_k = device_uf_cuda.stencil_full(mid, wdef)
-        out_p = duf._stencil_plain(mid, wdef)
-        torch.cuda.synchronize()
-        lab_wk, conv_wk = duf._stencil_labels(mid, wdef, *out_k)
-        lab_wp, conv_wp = duf._stencil_labels(mid, wdef, *out_p)
-        planes = [(out_k[0], out_p[0]), (out_k[1], out_p[1]),
-                  *zip(out_k[2], out_p[2]), *zip(lab_wk, lab_wp)]
-        k1c_err = max([k1c_err] + [max_abs(a, b) for a, b in planes])
-        if k1c_err or len(out_k[2]) != NC or len(lab_wk) != len(lab_wp) \
-                or not torch.equal(conv_wk, conv_wp):
-            raise RuntimeError(f"stencil kernel with chunks disagrees with "
-                               f"its plain version on the {name} window "
-                               f"graph (max abs err {k1c_err})")
-        if not bool(conv_wk.all()):
-            raise RuntimeError("a window row did not converge")
+        err, lab_wk, _ = k1_equal(duf, device_uf_cuda, mid, wdef,
+                                  f"with chunks on the {name} window graph")
+        k1c_err = max(k1c_err, err)
         carry_bits = sum(int((lab != 0).sum()) for lab in lab_wk[1:])
         log(f"K1 with chunks == plain version on {CHECK_ROWS} {name} window "
             f"rows: V={wdef.shape[1]} O={len(mid.stencil.deltas)} "
@@ -1961,22 +2399,24 @@ def main() -> int:
     #    and K2, the circuit-level merge, fault distances)
     surgery_rows = path10(dev, int_ops_per_s)
 
+    # -- 8i. main path 11: the compiled logical programs (the fused
+    #    compiled CNOT on K2 and the generic decoder, the op set on the
+    #    surgery tier, the circuit tier, the two-level memory with K1 on
+    #    its level-2 graph, the protocol gold on the card's tableau)
+    logical_rows = path11(dev, int_ops_per_s)
+
     # -- 9. kernel and plain-version times at the main paths' shapes
     defect_big = duf.stencil_defect(dg, dets_big)
     k1_ms = cuda_ms(lambda: device_uf_cuda.stencil_full(dg, defect_big), 20)
     k1_plain_ms = cuda_ms(lambda: duf._stencil_plain(dg, defect_big), 2)
-    pk, ak, _ = device_uf_cuda.stencil_full(dg, defect_big)
-    pp, ap, _ = duf._stencil_plain(dg, defect_big)
-    k1_err = max(k1_err, max_abs(pk, pp), max_abs(ak, ap))
-    # on all-zero detectors: the fixed cost of a row in and its labels out
+    # and on all-zero detectors: the fixed cost of a row in and its labels
+    # out
     zero_big = torch.zeros_like(defect_big)
     k1_zero_ms = cuda_ms(lambda: device_uf_cuda.stencil_full(dg, zero_big),
                          20)
-    k1_err = max([k1_err] + [max_abs(a, b) for a, b in zip(
-        device_uf_cuda.stencil_full(dg, zero_big)[:2],
-        duf._stencil_plain(dg, zero_big)[:2])])
-    if k1_err:
-        raise RuntimeError(f"stencil kernel disagrees at B={BATCH}")
+    for x in (defect_big, zero_big):
+        k1_err = max(k1_err, k1_equal(duf, device_uf_cuda, dg, x,
+                                      f"at B={BATCH}", converged=False)[0])
     V1 = defect_big.shape[1]
     k1_plan, k1_need, k1_bound = k1_report(
         f"B={BATCH} V={V1} NC=0", device_uf_cuda, duf, dg, defect_big,
@@ -2017,14 +2457,9 @@ def main() -> int:
     wzero = torch.zeros_like(wdef)
     k1w_zero_ms = cuda_ms(lambda: device_uf_cuda.stencil_full(mid, wzero), 20)
     for x in (wdef, wzero):
-        out_k = device_uf_cuda.stencil_full(mid, x)
-        out_p = duf._stencil_plain(mid, x)
-        k1c_err = max([k1c_err, max_abs(out_k[0], out_p[0]),
-                       max_abs(out_k[1], out_p[1])]
-                      + [max_abs(a, b) for a, b in zip(out_k[2], out_p[2])])
-    if k1c_err:
-        raise RuntimeError(f"stencil kernel with chunks disagrees at "
-                           f"B={STREAM_BATCH}")
+        k1c_err = max(k1c_err, k1_equal(
+            duf, device_uf_cuda, mid, x, f"with chunks at B={STREAM_BATCH}",
+            converged=False)[0])
     Vw = wdef.shape[1]
     NCw = len(mid.stencil.chunks)
     k1w_plan, k1w_need, k1w_bound = k1_report(
@@ -2051,13 +2486,9 @@ def main() -> int:
         PW_BATCH * n_mid, -1).contiguous())
     k1p_ms = cuda_ms(lambda: device_uf_cuda.stencil_full(pmid, pdef), 5)
     k1p_plain_ms = cuda_ms(lambda: duf._stencil_plain(pmid, pdef), 1)
-    out_k = device_uf_cuda.stencil_full(pmid, pdef)
-    out_p = duf._stencil_plain(pmid, pdef)
-    k1p_err = max([max_abs(out_k[0], out_p[0]), max_abs(out_k[1], out_p[1])]
-                  + [max_abs(a, b) for a, b in zip(out_k[2], out_p[2])])
-    if k1p_err:
-        raise RuntimeError("stencil kernel disagrees at the parallel "
-                           "window's interior shape")
+    k1p_err = k1_equal(duf, device_uf_cuda, pmid, pdef,
+                       "at the parallel window's interior shape",
+                       converged=False)[0]
     Vp, NCp = pdef.shape[1], len(pmid.stencil.chunks)
     k1p_label = f"B={pdef.shape[0]} V={Vp} NC={NCp}"
     k1p_plan, k1p_need, k1p_bound = k1_report(
@@ -2233,6 +2664,8 @@ def main() -> int:
     print(json.dumps({"side_information": sideinfo}), flush=True)
     surgery_kernels = surgery_rows.pop("kernels")
     print(json.dumps({"surgery": surgery_rows}), flush=True)
+    logical_kernels = logical_rows.pop("kernels")
+    print(json.dumps({"logical": logical_rows}), flush=True)
     print(json.dumps({"kernels": [
         {"name": "uf_stencil_full", "route": "cuda",
          "source": "qcss_tpu_torch/csrc/uf_stencil_full.cu",
@@ -2269,7 +2702,8 @@ def main() -> int:
                             ("erasure", sideinfo["erasure"]),
                             ("leakage", sideinfo["leakage"]["memory"]))
                         for arm, row in rows.items()}},
-         "surgery": surgery_kernels["K1"]},
+         "surgery": surgery_kernels["K1"],
+         "logical": logical_kernels["K1"]},
         {"name": "uf_stencil_prop", "route": "cuda",
          "source": "qcss_tpu_torch/csrc/uf_stencil_staged.cu",
          "replaces": "qcss_tpu/decode/device_uf_pallas.py:74",
@@ -2296,7 +2730,8 @@ def main() -> int:
              "bound_by", "library_ms", "bytes", "int_ops",
              "defects_per_shot", "events_per_shot", "sweeps_per_shot",
              "plan")},
-         "surgery": surgery_kernels["K2"]},
+         "surgery": surgery_kernels["K2"],
+         "logical": logical_kernels["K2"]},
         {"name": "syndromes_packed", "route": "cuda",
          "source": "qcss_tpu_torch/csrc/gf2_packed.cu",
          "replaces": "qcss_tpu/ops/pallas_gf2.py:51",

@@ -384,8 +384,11 @@ def k2_bare(tables, d_max: int, max_events: int, dets):
     return launch, (obs, conv)
 
 
-def k2_row(tables, dets, reps: int, ops_per_s: float) -> dict:
-    d_max = K2_DMAX
+def k2_row(tables, dets, reps: int, ops_per_s: float,
+           d_max: int = K2_DMAX) -> dict:
+    """K2 at ``d_max`` (and the decoders' default event cap) on these
+    detectors: held bit for bit against its plain version, timed, and
+    bounded."""
     ev = d_max * (d_max + 1) // 2 + 4
     launch, (obs, conv) = k2_bare(tables, d_max, ev, dets)
     launch()

@@ -446,6 +446,41 @@ def build_device_graph(graph: MatchingGraph,
     )
 
 
+def stencil_refusal(graph: MatchingGraph) -> str | None:
+    """Why `build_device_graph(graph)` builds no stencil graph, so that
+    `make_obs_decoder` decodes ``graph`` in the generic decoder and not in
+    the full stencil kernel; None when it builds one. The tests of
+    `build_device_graph` and `_build_stencil`, in their order."""
+    edges = np.asarray(graph.edges, np.int64)
+    bn = graph.num_nodes
+    V = bn + 1
+    eu = np.where(edges[:, 0] < 0, bn, edges[:, 0])
+    ev = np.where(edges[:, 1] < 0, bn, edges[:, 1])
+    vbits = max(int(V - 1).bit_length(), 1)
+    lane = np.asarray(graph.edge_obs, np.int64)
+    bits = max(int(np.bitwise_or.reduce(lane, initial=0)).bit_length(), 1)
+    if vbits + bits > 30:
+        return (f"its labels do not pack (log2(V)={vbits} + {bits} "
+                f"observable bits > 30)")
+    inner = (eu != bn) & (ev != bn)
+    lo = np.minimum(eu, ev)[inner]
+    hi = np.maximum(eu, ev)[inner]
+    deltas = np.unique(hi - lo)
+    if len(deltas) > _STENCIL_MAX_OFFSETS:
+        return (f"{len(deltas)} edge offsets (the stencil takes at most "
+                f"{_STENCIL_MAX_OFFSETS})")
+    if 0 in deltas:
+        return "a self-loop edge"
+    if len(np.unique(lo * V + hi)) != len(lo):
+        return "parallel edges between one pair of detectors"
+    per_node = np.bincount(np.where(eu == bn, ev, eu)[~inner], minlength=V)
+    KB = int(per_node.max(initial=1))
+    if KB > _STENCIL_MAX_B:
+        return (f"{KB} boundary edges on one detector (the stencil takes at "
+                f"most {_STENCIL_MAX_B})")
+    return None
+
+
 def device_graph_from_numpy(*, deltas, emask, ewt, eobs, bmask, bwt, bobs,
                             pack_shift: int, lane_offsets, lane_masks,
                             num_nodes: int, max_rounds: int,

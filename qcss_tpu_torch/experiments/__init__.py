@@ -20,12 +20,27 @@ from qcss_tpu_torch.experiments.memory_qldpc import (
     qldpc_stream_memory_rate,
 )
 from qcss_tpu_torch.experiments.memory_xz import xz_memory_experiment
+from qcss_tpu_torch.experiments.concatenated import (
+    logical_repetition_memory,
+    repetition_spacetime_graph,
+)
+from qcss_tpu_torch.experiments.logical import LogicalProgram
+from qcss_tpu_torch.experiments.resources import (
+    fit_suppression,
+    logical_resource_report,
+    program_stats,
+    required_distance,
+)
 from qcss_tpu_torch.experiments.patches import (
     Phase,
     Readout,
     build_schedule,
     parity_chain_memory,
     schedule_memory,
+)
+from qcss_tpu_torch.experiments.schedule_circuit import (
+    build_circuit_schedule,
+    circuit_schedule_memory,
 )
 from qcss_tpu_torch.experiments.surgery_circuit import (
     build_xx_merge_circuit,
@@ -52,21 +67,30 @@ from qcss_tpu_torch.experiments.soft import (
 )
 
 __all__ = [
+    "LogicalProgram",
     "Phase",
     "Readout",
+    "build_circuit_schedule",
     "build_schedule",
     "build_surgery_cnot",
     "build_xx_merge",
     "build_xx_merge_circuit",
     "build_xx_merge_split",
+    "circuit_schedule_memory",
     "erasure_error_rate",
     "erasure_phenomenological_error_rate",
+    "fit_suppression",
     "leakage_circuit_memory",
     "leakage_memory_experiment",
+    "logical_repetition_memory",
+    "logical_resource_report",
     "memory_experiment",
     "parity_chain_memory",
+    "program_stats",
     "qldpc_memory_experiment",
     "qldpc_stream_memory_rate",
+    "repetition_spacetime_graph",
+    "required_distance",
     "schedule_memory",
     "soft_bp_phenomenological_error_rate",
     "soft_device_memory_rate",

@@ -33,6 +33,7 @@ PORT_MODULES = [
     "qcss_tpu_torch.benchmarks.device_uf_bench",
     "qcss_tpu_torch.benchmarks.profiling",
     "qcss_tpu_torch.benchmarks.sideinfo_bench",
+    "qcss_tpu_torch.benchmarks.surgery_bench",
     "qcss_tpu_torch.benchmarks.pw_bench",
     "qcss_tpu_torch.benchmarks.staged_bench",
     "qcss_tpu_torch.benchmarks.steane_mc",
@@ -71,12 +72,17 @@ PORT_MODULES = [
     "qcss_tpu_torch.decode.streaming",
     "qcss_tpu_torch.decode.sweep",
     "qcss_tpu_torch.decode.uf",
+    "qcss_tpu_torch.experiments.concatenated",
     "qcss_tpu_torch.experiments.erasure",
     "qcss_tpu_torch.experiments.leakage",
+    "qcss_tpu_torch.experiments.logical",
     "qcss_tpu_torch.experiments.memory",
     "qcss_tpu_torch.experiments.memory_qldpc",
     "qcss_tpu_torch.experiments.memory_xz",
     "qcss_tpu_torch.experiments.patches",
+    "qcss_tpu_torch.experiments.protocol",
+    "qcss_tpu_torch.experiments.resources",
+    "qcss_tpu_torch.experiments.schedule_circuit",
     "qcss_tpu_torch.experiments.soft",
     "qcss_tpu_torch.experiments.surgery",
     "qcss_tpu_torch.experiments.surgery_circuit",
@@ -152,7 +158,7 @@ VERBATIM = ["errors.py", "circuits/ir.py", "circuits/encoding.py",
             "codes/symplectic.py", "codes/distance.py", "decode/dem.py",
             "decode/blossom.py", "decode/calibrate.py", "decode/mwpm.py",
             "sim/statevec.py", "decode/dem2.py", "decode/bp_dem.py",
-            "decode/bp_streaming.py"]
+            "decode/bp_streaming.py", "experiments/resources.py"]
 
 
 @pytest.mark.parametrize("rel", VERBATIM)
@@ -218,6 +224,13 @@ COPIED_DEFS = [
     ("experiments/surgery_circuit.py", ["_x_extraction_ops", "_walk",
                                         "CircuitMergeModel",
                                         "build_xx_merge_circuit"]),
+    ("experiments/logical.py", ["_term_key", "_xor_terms",
+                                "t_circuit_report"]),
+    ("experiments/schedule_circuit.py", ["round_ops", "_walk",
+                                         "CircuitScheduleModel", "_Plan",
+                                         "build_circuit_schedule"]),
+    ("experiments/concatenated.py", ["repetition_spacetime_graph",
+                                     "_build_program"]),
 ]
 
 
@@ -236,6 +249,33 @@ def test_fault_distance_copied_up_to_the_witness():
     orig = _segments(_rewired("decode/fault_distance.py"), name)[name[0]]
     port = _segments(_port("decode/fault_distance.py"), name)[name[0]]
     assert port.split(cut)[0] == orig.split(cut)[0]
+
+
+def test_logical_program_copied_but_its_runners():
+    # `run`, `run_full` and `run_circuit` gain `device` and `profile`;
+    # every other method of the compiler is the reference's text.
+    def methods(text):
+        cls = next(node for node in ast.parse(text).body
+                   if getattr(node, "name", None) == "LogicalProgram")
+        return {node.name: ast.get_source_segment(text, node)
+                for node in cls.body if isinstance(node, ast.FunctionDef)}
+
+    orig = methods(_rewired("experiments/logical.py"))
+    port = methods(_port("experiments/logical.py"))
+    assert set(port) == set(orig)
+    runners = {"run", "run_full", "run_circuit"}
+    for name in set(orig) - runners:
+        assert port[name] == orig[name], name
+
+
+def test_level2_detectors_copied_up_to_the_concatenation():
+    # the one array call that differs: jnp.concatenate(axis=) is
+    # torch.cat(dim=) on the port's tensors
+    name = ["_level2_detectors"]
+    orig = _segments(_rewired("experiments/concatenated.py"), name)[name[0]]
+    port = _segments(_port("experiments/concatenated.py"), name)[name[0]]
+    assert port == orig.replace("jnp.concatenate(", "torch.cat(").replace(
+        "axis=1)", "dim=1)")
 
 
 def test_device_graph_builders_copied():
