@@ -165,6 +165,27 @@ the stencil kernel:
    launches over (a)-(e); then K2 on 1024 of the d=5 CNOT's detector rows
    and K1 on 1024 level-2 rows against their plain versions, timed; one
    JSON line `logical`;
+   main path 12, the FT transpiler (`rewrite_program` on the tableau
+   engines; K9 in every block measurement and reset on 'packed'): (a) the
+   deterministic programs of the JAX package's tests/test_ftqc.py and
+   test_quil.py (X, Y, Z, XXX, YZ, HZH, S, feedback, superdense coding on
+   all four bit pairs, GHZ4 with dedicated ancillas, repeat-until, the
+   classical-op programs, ec_extractions=2, the two-entry Quil loop, X on
+   the surface-3 and Shor codes) on both engines at B=1024, every outcome
+   its gold and `__prep_fail__` 0; (b) the engines bit for bit (registers,
+   prep_fail, frames) under the executor's own channels (p_meas = p_reset
+   = p_idle = 0.01) at B=4096 on the X program, superdense coding and X
+   with ec_extractions=2 and dedicated ancillas; (c) the noisy Steane X
+   program (p_gate1 = p_gate2 = p_meas = 0.01) at B=16384 on both
+   engines, its failures and prep_fail shots against the JAX package's
+   count by two-sample 99.9% tests; (d) the flagship bench
+   (benchmarks/ftqc_bench.py's X program on Steane and rotated surface
+   d=5, B=16384, 2 warm and 3 timed calls, each fenced by a host read):
+   shots/s and the correct fraction, 1.0; (e) K9's launches over the path
+   (above 0 on 'packed', 0 on 'unpacked'), then K9 against its plain
+   version bit for bit and timed on states the path measures (a block
+   measurement of the packed X program: Steane, M=7, and surface-5,
+   M=25, B=16384); one JSON line `ftqc`;
 9. times each kernel, its plain version and (K6, K7) the dense matmul
    form at the main paths' shapes, beside each kernel's bound, checking
    each timed output against the plain version's; K9 and K2 through
@@ -301,6 +322,23 @@ LOGICAL_TWO_LEVEL = (3, 3, 3, 4e-3)  # d, k, rounds_l, p = q
 LOGICAL_TWO_LEVEL_RUNS = (("device-uf", 8192, 4, (0.337, 0.035)),
                           ("host", 2048, 1, (0.342, 0.047)))
 LOGICAL_PROTOCOL = ((0, 0, 131), (1, 0, 133), (0, 1, 132), (1, 1, 134))
+# path 12, the FT transpiler (`rewrite_program` on the tableau engines)
+FTQC_ENGINES = ("unpacked", "packed")
+FTQC_GOLD_BATCH = 1024
+FTQC_EQ_BATCH = 4096                  # the engines bit for bit under the
+FTQC_EQ_P = 0.01                      # executor's p_meas, p_reset, p_idle
+FTQC_EQ_RUNS = (("x", {}), ("superdense11", {}),
+                ("x", {"ec_extractions": 2, "ancillas": "dedicated"}))
+FTQC_RATE_BATCH = 16384
+FTQC_RATE_P = 0.01                    # p_gate1 = p_gate2 = p_meas
+# The JAX package's count for the noisy Steane X program at FTQC_RATE_P on
+# its unpacked engine: 287 failures (ro != 1) and 70 prep_fail shots of
+# 4096, from `rewrite_program(x, steane(), noise=NoiseModel(p_gate1=0.01,
+# p_gate2=0.01, p_meas=0.01)).run(4096, key=jax.random.key(2))` on the CPU
+# (JAX 0.9.0), the reference's executor not being run on the card
+FTQC_RATE_REF = (287, 70, 4096)
+FTQC_BENCH_BATCH = 16384              # benchmarks/ftqc_bench.py's bench
+FTQC_BENCH_CODES = ("steane", "surface5")
 Z999 = 3.2905
 
 
@@ -1826,6 +1864,214 @@ def path11(dev, int_ops_per_s):
     return out
 
 
+
+def path12(dev, int_ops_per_s, smi):
+    """Main path 12, the FT transpiler (`rewrite_program` on the
+    'unpacked' and 'packed' tableau engines; the packed engine's block
+    measurements and resets run K9): (a) exact outcomes, (b) the engines
+    bit for bit under the executor's channels, (c) failure rates against
+    the JAX package's count, (d) the flagship bench, (e) K9's launches and
+    K9 on the path's own states (module docstring). Returns the `ftqc`
+    JSON object and K9's path-12 entry."""
+    import numpy as np
+    import torch
+
+    from qcss_tpu_torch.benchmarks import ftqc_programs as fp
+    from qcss_tpu_torch.benchmarks import measure_sparse_bench as msb
+    from qcss_tpu_torch.codes import families
+    from qcss_tpu_torch.ftqc import rewrite_program, schedule
+    from qcss_tpu_torch.sim import cuda_measure
+    from qcss_tpu_torch.sim import tableau as tb
+    from qcss_tpu_torch.sim.noise import NoiseModel
+
+    out = {"card": smi}
+    launches = dict.fromkeys(FTQC_ENGINES, 0)
+
+    def counted(tableau, fn):
+        n0 = cuda_measure.launches
+        res = fn()
+        launches[tableau] += cuda_measure.launches - n0
+        return res
+
+    cuda_measure.launches = 0
+    t_path = time.perf_counter()
+
+    # -- (a) exact outcomes on the card
+    gold, gold_by_program = {}, {}
+    for tableau in FTQC_ENGINES:
+        t0 = time.perf_counter()
+        by_program = gold_by_program[tableau] = {}
+        for name, spec in fp.PROGRAMS.items():
+            t1 = time.perf_counter()
+            prog, code = fp.build(name)
+            enc = rewrite_program(prog, code, tableau=tableau, device=dev,
+                                  **spec.options)
+            res = counted(tableau, lambda: enc.run(FTQC_GOLD_BATCH, 0))
+            prep_fail = int(res["__prep_fail__"].sum())
+            if not spec.gold(res) or prep_fail:
+                raise RuntimeError(
+                    f"{name} ({spec.source}) on '{tableau}': outcomes "
+                    f"{np.unique(res['ro'], axis=0)} miss the gold, or "
+                    f"{prep_fail} prep_fail shots")
+            if name in ("ghz4", "feedback") and not \
+                    0 < res["ro"][:, 0].mean() < 1:
+                raise RuntimeError(f"{name}: the first measurement is not "
+                                   f"random")
+            by_program[name] = round(time.perf_counter() - t1, 3)
+        gold[tableau] = time.perf_counter() - t0
+        log(f"path 12 (a) '{tableau}': {len(fp.PROGRAMS)} programs at "
+            f"B={FTQC_GOLD_BATCH}, every outcome its gold, prep_fail 0 "
+            f"({gold[tableau]:.1f} s; by program {by_program})")
+    out["gold_s"] = gold
+    out["gold_s_by_program"] = gold_by_program
+
+    # -- (b) the engines bit for bit under the executor's channels
+    t_part = time.perf_counter()
+    eq_noise = NoiseModel(p_meas=FTQC_EQ_P, p_reset=FTQC_EQ_P,
+                          p_idle=FTQC_EQ_P)
+    out["equal"] = {}
+    for name, options in FTQC_EQ_RUNS:
+        prog, code = fp.build(name)
+        macro = schedule.lower(prog, code)
+        states = {}
+        for tableau in FTQC_ENGINES:
+            ex = schedule.MacroExecutor(code, macro.n_logical, eq_noise,
+                                        tableau_engine=tableau, device=dev,
+                                        **options)
+            states[tableau] = counted(tableau, lambda: ex.execute(
+                macro, FTQC_EQ_BATCH, seed=7))
+        a, b = (states[k] for k in FTQC_ENGINES)
+        for field in ("memory", "prep_fail", "x_frames", "z_frames"):
+            if not torch.equal(getattr(a, field), getattr(b, field)):
+                raise RuntimeError(f"{name} {options}: the engines' {field} "
+                                   f"differ under the executor's channels")
+        key = name + "".join(f" {k}={v}" for k, v in options.items())
+        out["equal"][key] = {
+            "frame_bits": int(a.x_frames.sum() + a.z_frames.sum()),
+            "prep_fail": int(a.prep_fail.sum())}
+        if not out["equal"][key]["frame_bits"]:
+            raise RuntimeError(f"{key}: the channels left no frame bit")
+        log(f"path 12 (b) {key} B={FTQC_EQ_BATCH}, p_meas=p_reset=p_idle="
+            f"{FTQC_EQ_P}: unpacked == packed (registers, prep_fail, frames;"
+            f" {out['equal'][key]})")
+
+    out["equal_s"] = time.perf_counter() - t_part
+
+    # -- (c) failure rates against the JAX package's count
+    steane = families.steane()
+    rate_noise = NoiseModel(p_gate1=FTQC_RATE_P, p_gate2=FTQC_RATE_P,
+                            p_meas=FTQC_RATE_P)
+    ref_fail, ref_prep, ref_n = FTQC_RATE_REF
+    out["rates"] = {}
+    for tableau in FTQC_ENGINES:
+        enc = rewrite_program(fp.x_program(), steane, noise=rate_noise,
+                              tableau=tableau, device=dev)
+        t0 = time.perf_counter()
+        res = counted(tableau, lambda: enc.run(FTQC_RATE_BATCH, 3))
+        dt = time.perf_counter() - t0
+        fails = int((res["ro"][:, 0] != 1).sum())
+        prep = int(res["__prep_fail__"].sum())
+        ok_f, spread_f = two_sample_ok(fails, FTQC_RATE_BATCH, ref_fail,
+                                       ref_n)
+        ok_p, spread_p = two_sample_ok(prep, FTQC_RATE_BATCH, ref_prep, ref_n)
+        out["rates"][tableau] = {"fail": fails, "prep_fail": prep,
+                                 "batch": FTQC_RATE_BATCH, "s": dt}
+        log(f"path 12 (c) '{tableau}' noisy Steane X B={FTQC_RATE_BATCH}: "
+            f"{fails} failures ({fails / FTQC_RATE_BATCH:.5f}; the JAX "
+            f"package {ref_fail / ref_n:.5f}, allowed difference "
+            f"{spread_f:.5f}), prep_fail {prep} ({prep / FTQC_RATE_BATCH:.5f};"
+            f" {ref_prep / ref_n:.5f}, {spread_p:.5f}); {dt:.2f} s")
+        if not (ok_f and ok_p and fails > 0):
+            raise RuntimeError(f"'{tableau}': the noisy X program's rates "
+                               f"disagree with the JAX package's")
+
+    # -- (d) the flagship bench: benchmarks/ftqc_bench.py's X program
+    out["bench"] = {}
+    for code_name in FTQC_BENCH_CODES:
+        code = fp.CODES[code_name](families)
+        for tableau in FTQC_ENGINES:
+            enc = rewrite_program(fp.x_program(), code, tableau=tableau,
+                                  device=dev)
+
+            def once(seed, enc=enc, tableau=tableau):
+                return int(counted(tableau, lambda: enc.run(
+                    FTQC_BENCH_BATCH, seed))["ro"].sum())  # host fence
+
+            t0 = time.perf_counter()
+            once(100)
+            once(101)
+            warm = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            correct = sum(once(i + 1) for i in range(3))
+            dt = time.perf_counter() - t0
+            row = {"shots_per_sec": 3 * FTQC_BENCH_BATCH / dt,
+                   "correct_fraction": correct / (3 * FTQC_BENCH_BATCH),
+                   "timed_s": dt, "warm_s": warm, "n": code.n, "t": code.t}
+            out["bench"][f"{code_name} {tableau}"] = row
+            log(f"path 12 (d) ftqc_bench {code_name} (n={code.n}, t={code.t})"
+                f" '{tableau}' B={FTQC_BENCH_BATCH}: "
+                f"{row['shots_per_sec']:.1f} shots/s, correct fraction "
+                f"{row['correct_fraction']} ({dt:.3f} s for 3 calls; "
+                f"{smi})")
+            if row["correct_fraction"] != 1.0:
+                raise RuntimeError(f"ftqc_bench {code_name} '{tableau}': "
+                                   f"noiseless outcomes not all 1")
+
+    # -- (e) K9: the states this path measures, caught at the packed X
+    #    program's last block measurement (an ancilla block), then K9's
+    #    launches over the path
+    states = {}
+    for code_name in FTQC_BENCH_CODES:
+        code = fp.CODES[code_name](families)
+        macro = schedule.lower(fp.x_program(), code)
+        ex = schedule.MacroExecutor(code, 1, tableau_engine="packed",
+                                    device=dev)
+        measure = ex.engine.measure_block
+        seen = []
+
+        def spy(tab, b, generator=None, *, rand_bits=None, seen=seen,
+                measure=measure):
+            seen[:] = [(tab, b)]
+            return measure(tab, b, generator, rand_bits=rand_bits)
+
+        ex.engine.measure_block = spy
+        counted("packed", lambda: ex.execute(macro, FTQC_BENCH_BATCH,
+                                             seed=11))
+        tab, b = seen[0]
+        states[code_name] = (tab, ex.engine.block_qubits(b))
+    out["path_s"] = time.perf_counter() - t_path
+    out["k9_launches"] = dict(launches)
+    log(f"path 12 launches: K9 {launches} ({out['path_s']:.1f} s)")
+    if launches["packed"] <= 0 or launches["unpacked"] != 0:
+        raise RuntimeError(f"K9 launches over path 12 {launches}: above 0 on "
+                           f"'packed' and 0 on 'unpacked' expected")
+    rows = {}
+    for code_name, (tab, qs) in states.items():
+        bits = tb.collapse_bits(torch.Generator(device=dev).manual_seed(12),
+                                tab.batch, len(qs))
+        row = msb.k9_row({"t": tab, "qubits": qs, "bits": bits,
+                          "branch": f"path 12, {code_name}"}, 20,
+                         int_ops_per_s)
+        rows[code_name] = row
+        log(f"K9 at path 12's {code_name} state (B={row['B']} n={row['n']} "
+            f"W={row['W']} M={row['M']}, {row['random_share']:.3f} of the "
+            f"outcomes random): == plain (outcomes, x, z, r); wrapper "
+            f"{row['ms']:.4f} ms, a launch in a graph {row['hot_ms']:.4f} "
+            f"hot, {row['cold_ms']:.4f} cold; plain {row['plain_ms']:.3f} "
+            f"ms; bound {row['bound_ms']:.4f} ms ({row['bound_by']}); plan "
+            f"{row['plan']}")
+    keep = ("ms", "host_ms", "hot_ms", "cold_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "random_share", "int_ops", "plan")
+    k9 = {"launches": launches["packed"], "by_engine": dict(launches),
+          "max_abs_err": 0,
+          **{code_name: {"shape": f"B={r['B']} n={r['n']} W={r['W']} "
+                                  f"M={r['M']} (path 12, {code_name} X "
+                                  f"program, an ancilla block)",
+                         **{k: r[k] for k in keep}}
+             for code_name, r in rows.items()}}
+    return out, k9
+
+
 def main() -> int:
     try:
         import torch
@@ -2405,6 +2651,11 @@ def main() -> int:
     #    its level-2 graph, the protocol gold on the card's tableau)
     logical_rows = path11(dev, int_ops_per_s)
 
+    # -- 8j. main path 12: the FT transpiler on the tableau engines (K9 in
+    #    every packed block measurement), exact outcomes, the engines bit
+    #    for bit, rates against the JAX package's count, the flagship bench
+    ftqc, k9_ftqc = path12(dev, int_ops_per_s, smi)
+
     # -- 9. kernel and plain-version times at the main paths' shapes
     defect_big = duf.stencil_defect(dg, dets_big)
     k1_ms = cuda_ms(lambda: device_uf_cuda.stencil_full(dg, defect_big), 20)
@@ -2666,6 +2917,8 @@ def main() -> int:
     print(json.dumps({"surgery": surgery_rows}), flush=True)
     logical_kernels = logical_rows.pop("kernels")
     print(json.dumps({"logical": logical_rows}), flush=True)
+    print(json.dumps({"ftqc": ftqc}), flush=True)
+    k9_entry["ftqc"] = k9_ftqc
     print(json.dumps({"kernels": [
         {"name": "uf_stencil_full", "route": "cuda",
          "source": "qcss_tpu_torch/csrc/uf_stencil_full.cu",

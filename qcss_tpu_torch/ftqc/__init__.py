@@ -1,7 +1,29 @@
-"""Fault-tolerant quantum computation: the block-level tableau engines the
-FT executor runs on (`engines`). The executor, the rewriter, flags and
-magic-state injection are not ported yet (ROADMAP.md, queue 1)."""
+"""Fault-tolerant quantum computation: the FT transpiler on the block-level
+tableau engines.
+
+`rewrite_program` validates a raw Clifford program and returns an
+`EncodedProgram`, whose `run` executes it batched over the shots as the
+macro-op rows of `schedule` (FT preparation, Steane EC after every gate,
+2t+1 majority-vote measurement) on the 'unpacked' or 'packed' tableau
+engine (`engines`; the packed one measures blocks with K9 on the card).
+
+Not ported yet (ROADMAP.md, queue 1): the Pauli-frame engine
+(``tableau='frames'``), the unrolled engine (``engine='unrolled'``, with
+`CodeBlock`, `ExecState` and `FTProtocols`), flag EC, parallel EC and
+magic-state injection.
+"""
 
 from qcss_tpu_torch.ftqc.engines import PackedEngine, UnpackedEngine
+from qcss_tpu_torch.ftqc.rewrite import (
+    EncodedProgram,
+    rewrite_program,
+    run_program,
+)
 
-__all__ = ["PackedEngine", "UnpackedEngine"]
+__all__ = [
+    "EncodedProgram",
+    "PackedEngine",
+    "UnpackedEngine",
+    "rewrite_program",
+    "run_program",
+]

@@ -15,6 +15,13 @@ representations:
   block measurement is K9 (`sim.cuda_measure`) for a tableau on the card
   and the scan for one on the CPU.
 
+A block reset is the block measurement followed by X on the qubits that
+read 1. The reference resets qubit by qubit (measure, then X); an X
+conjugation commutes with every later measurement's tableau update (it
+only flips the signs of the rows that anticommute with it, and a rowsum
+carries those flips along), so the two give the same state bit for bit,
+and on the card the packed engine's reset runs K9.
+
 Both expose the same method set. Block indices are host ints; randomness
 comes from a `torch.Generator` where the reference takes a key, and the
 measurement and reset methods also take explicit collapse bits
@@ -42,7 +49,7 @@ from qcss_tpu_torch.sim import tableau_packed as tp
 
 WORD = 32
 _NOT_PORTED = ("the frame engine is not ported yet (ROADMAP.md, queue 1, "
-               "item 2: FrameEngine needs frame.run_compiled_noisy_multi, "
+               "item 3 (b): FrameEngine needs frame.run_compiled_noisy_multi, "
                "the qubits= window and inject1_many/inject2_many)")
 
 
@@ -65,8 +72,10 @@ class UnpackedEngine:
         return tb.select(mask, new, old)
 
     def reset_block(self, tab, b, generator=None, *, rand_bits=None):
-        return tb.reset_many(tab, self.block_qubits(b), generator,
-                             rand_bits=rand_bits)
+        """Reset block b to |0>^n: measure it, then X where a qubit read 1
+        (`reset_block` of the module docstring)."""
+        tab, outs = self.measure_block(tab, b, generator, rand_bits=rand_bits)
+        return self.inject_block_flips(tab, b, outs, torch.zeros_like(outs))
 
     def run_block_circuit(self, tab, arrays, b, generator=None):
         """Run a block-local circuit (qubit indices in [0, n)) on block b,
@@ -154,8 +163,10 @@ class PackedEngine:
         return tp.select(mask, new, old)
 
     def reset_block(self, tab, b, generator=None, *, rand_bits=None):
-        return tp.reset_many(tab, self.block_qubits(b), generator,
-                             rand_bits=rand_bits)
+        """Reset block b to |0>^n: the block measurement (K9 on the card),
+        then X where a qubit read 1."""
+        tab, outs = self.measure_block(tab, b, generator, rand_bits=rand_bits)
+        return self.inject_block_flips(tab, b, outs, torch.zeros_like(outs))
 
     # -- packed noise helpers -------------------------------------------------
 

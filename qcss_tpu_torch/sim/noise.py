@@ -115,6 +115,31 @@ class NoiseModel:
         )
 
 
+def compose_pauli(rate, steps: int):
+    """The T-fold composition of a single-qubit Pauli channel, in closed
+    form via its Pauli-transfer eigenvalues (lambda_x = 1 - 2(p_y + p_z)
+    etc. multiply under composition): a qubit idling for `steps` time
+    steps sees ONE channel with these rates, so duration-weighted idle
+    noise costs a single RNG draw regardless of duration. `rate` is a
+    scalar uniform total or a (p_x, p_y, p_z) tuple of host floats; the
+    return matches the input's form (uniform composes to uniform)."""
+    if steps == 1:
+        return rate
+    if isinstance(rate, tuple):
+        px, py, pz = rate
+    else:
+        px = py = pz = rate / 3.0
+    lx = (1.0 - 2.0 * (py + pz)) ** steps
+    ly = (1.0 - 2.0 * (px + pz)) ** steps
+    lz = (1.0 - 2.0 * (px + py)) ** steps
+    px2 = max((1.0 + lx - ly - lz) / 4.0, 0.0)
+    py2 = max((1.0 - lx + ly - lz) / 4.0, 0.0)
+    pz2 = max((1.0 - lx - ly + lz) / 4.0, 0.0)
+    if isinstance(rate, tuple):
+        return (px2, py2, pz2)
+    return px2 + py2 + pz2
+
+
 def _thresholds_1q(p):
     """Cumulative event thresholds (x_hi, z_lo, z_hi) over u ~ U[0,1).
     Event layout: X on [0, p_x), Y on [p_x, p_x+p_y), Z on

@@ -160,15 +160,20 @@ def _parity_reduce(bits: torch.Tensor) -> torch.Tensor:
     return (bits.sum(dim=-1) & 1).to(torch.uint8)
 
 
-def _index(qubits, device) -> torch.Tensor:
-    return torch.as_tensor(host_qubits(qubits), dtype=torch.int64,
-                           device=device)
+def _index(qubits, device):
+    """The columns of ``qubits``: a slice (views, no gather) when they are
+    a contiguous increasing run, as a code block's are, else an index
+    tensor."""
+    qs = host_qubits(qubits)
+    if qs and qs == list(range(qs[0], qs[0] + len(qs))):
+        return slice(qs[0], qs[0] + len(qs))
+    return torch.as_tensor(qs, dtype=torch.int64, device=device)
 
 
 def apply_h_many(t: Tableau, qubits) -> Tableau:
     q = _index(qubits, t.x.device)
     x, z, r = t.clone()
-    xq, zq = x[:, :, q], z[:, :, q]  # advanced indexing: copies
+    xq, zq = x[:, :, q].clone(), z[:, :, q].clone()
     r ^= _parity_reduce(xq & zq)
     x[:, :, q] = zq
     z[:, :, q] = xq
@@ -233,13 +238,21 @@ def run_circuit(t: Tableau, circuit: Circuit) -> Tableau:
     return run_circuit_scanned(t, *circuit.to_arrays())
 
 
+def _blend(m: torch.Tensor, new: torch.Tensor,
+           old: torch.Tensor) -> torch.Tensor:
+    """``new`` where the uint8 mask ``m`` (broadcast; 0 or 0xFF) is set,
+    else ``old``: two bit operations, where ``torch.where`` on bytes is an
+    order of magnitude slower on the CPU."""
+    return old ^ ((new ^ old) & m)
+
+
 def select(mask: torch.Tensor, new: Tableau, old: Tableau) -> Tableau:
     """Per-sample select: take `new` where mask[b] else `old`."""
-    m = mask.to(torch.bool)
+    m = -(mask.to(torch.bool).to(torch.uint8))  # 0 or 0xFF
     return Tableau(
-        torch.where(m[:, None, None], new.x, old.x),
-        torch.where(m[:, None, None], new.z, old.z),
-        torch.where(m[:, None], new.r, old.r),
+        _blend(m[:, None, None], new.x, old.x),
+        _blend(m[:, None, None], new.z, old.z),
+        _blend(m[:, None], new.r, old.r),
     )
 
 
@@ -266,11 +279,10 @@ def inject_flips(t: Tableau, qubits, x_flips: torch.Tensor,
     """Pauli flips x_flips/z_flips [B, m] on the given distinct qubits
     (`apply_pauli_frame` on [B, n] planes zero elsewhere)."""
     q = _index(qubits, t.x.device)
-    xf = torch.zeros((t.batch, t.n), dtype=torch.uint8, device=t.x.device)
-    zf = torch.zeros_like(xf)
-    xf[:, q] = x_flips.to(torch.uint8)
-    zf[:, q] = z_flips.to(torch.uint8)
-    return apply_pauli_frame(t, xf, zf)
+    xf = x_flips.to(torch.uint8)[:, None, :]
+    zf = z_flips.to(torch.uint8)[:, None, :]
+    flips = _parity_reduce((t.z[:, :, q] & xf) ^ (t.x[:, :, q] & zf))
+    return Tableau(t.x, t.z, t.r ^ flips)
 
 
 # ---------------------------------------------------------------------------
@@ -300,73 +312,103 @@ def resolve_collapse_bits(generator, rand_bits, batch: int, m: int,
     return rand_bits
 
 
-def _g_exponent(x1, z1, x2, z2):
-    """Aaronson-Gottesman g: the exponent of i picked up when multiplying
-    the single-qubit Pauli (x1, z1) by (x2, z2). Values in {-1, 0, 1}."""
-    x1, z1 = x1.to(torch.int8), z1.to(torch.int8)
-    x2, z2 = x2.to(torch.int8), z2.to(torch.int8)
-    return (
-        x1 * z1 * (z2 - x2)
-        + x1 * (1 - z1) * z2 * (2 * x2 - 1)
-        + (1 - x1) * z1 * x2 * (1 - 2 * z2)
-    )
-
-
 def _measure_z(t: Tableau, q: int, rand_bit: torch.Tensor):
     """One Z measurement of qubit q with collapse bits ``rand_bit`` [B]."""
-    B, two_n, n = t.x.shape[0], t.x.shape[1], t.n
-    dev = t.x.device
-    row_ids = torch.arange(two_n, device=dev)
-    bidx = torch.arange(B, device=dev)
-
     xq = t.x[:, :, q]  # [B, 2n]
-    stab_anticommutes = xq[:, n:] == 1  # [B, n]
-    is_random = stab_anticommutes.any(dim=1)  # [B]
+    is_random = xq[:, t.n:].to(torch.bool).any(dim=1)  # [B]
+    return _measure_column(t, q, xq, is_random, int(is_random.sum()),
+                           rand_bit)
 
-    # ---- random branch: argmax takes the first (lowest) anticommuting row
-    p_row = n + torch.argmax(stab_anticommutes.to(torch.uint8), dim=1)
+
+def _measure_column(t: Tableau, q: int, xq: torch.Tensor,
+                    is_random: torch.Tensor, n_random: int,
+                    rand_bit: torch.Tensor):
+    """`_measure_z` given column q of x, which samples' outcomes are
+    random (some stabilizer row anticommutes with Z_q) and how many: the
+    random samples take the Aaronson-Gottesman row updates, the others
+    the closed-form deterministic outcome, each branch on its own samples
+    only."""
+    B, n = t.batch, t.n
+    if n_random == 0:
+        return t, _deterministic_outcomes(t, xq[:, :, None])[:, 0]
+    if n_random == B:
+        return _random_branch(t, xq, q, rand_bit)
+    rs = is_random.nonzero()[:, 0]
+    ds = (~is_random).nonzero()[:, 0]
+    sub, out_r = _random_branch(Tableau(t.x[rs], t.z[rs], t.r[rs]), xq[rs],
+                                q, rand_bit[rs])
+    x, z, r = t.clone()
+    x[rs], z[rs], r[rs] = sub
+    outcome = torch.empty_like(rand_bit)
+    outcome[rs] = out_r
+    outcome[ds] = _deterministic_outcomes(
+        Tableau(t.x[ds], t.z[ds], t.r[ds]), xq[ds, :, None])[:, 0]
+    return Tableau(x, z, r), outcome
+
+
+def _random_branch(t: Tableau, xq: torch.Tensor, q: int,
+                   rand_bit: torch.Tensor):
+    """The random branch of `_measure_z` on samples whose outcome is
+    random (xq = column q of x): the first anticommuting stabilizer row p
+    is multiplied into every other row with x_iq = 1, copied into its
+    destabilizer slot, and becomes +/- Z_q with the collapse bit as its
+    sign, which is the outcome."""
+    B, n = t.batch, t.n
+    dev = t.x.device
+    bidx = torch.arange(B, device=dev)
+    p_row = n + torch.argmax(xq[:, n:], dim=1)  # the first (lowest) one
     px, pz, pr = t.x[bidx, p_row], t.z[bidx, p_row], t.r[bidx, p_row]
+    targets = xq.clone()  # [B, 2n] 0/1
+    targets[bidx, p_row] = 0
+    # rowsum(i, p): the phase exponent sum_j g(p_j, row_ij), by the kind
+    # of the source Pauli at j (Y, X or Z), is
+    #   z.(pY - pX) + x.(pZ - pY) + 2 (x & z).(pX - pZ);
+    # every target but the destabilizer p - n (overwritten below)
+    # commutes with row p, so the exponent is even and the new sign is
+    # r_i ^ r_p ^ (exponent / 2 mod 2) (int8 sums wrap mod 256).
+    p_y = px & pz
+    p_x, p_z = (px ^ p_y).view(torch.int8), (pz ^ p_y).view(torch.int8)
+    p_y = p_y.view(torch.int8)
+    x8, z8 = t.x.view(torch.int8), t.z.view(torch.int8)
+    g = (z8 * (p_y - p_x)[:, None, :] + x8 * (p_z - p_y)[:, None, :]
+         + (x8 & z8) * (2 * (p_x - p_z))[:, None, :]).sum(
+             dim=-1, dtype=torch.int8)
+    half = ((g >> 1) & 1).view(torch.uint8)
+    new_r = t.r ^ (targets & (pr[:, None] ^ half))
+    new_x = t.x ^ (targets[:, :, None] & px[:, None, :])
+    new_z = t.z ^ (targets[:, :, None] & pz[:, None, :])
+    # row p into its destabilizer slot, then row p = +/- Z_q
+    new_x[bidx, p_row - n] = px
+    new_z[bidx, p_row - n] = pz
+    new_r[bidx, p_row - n] = pr
+    new_x[bidx, p_row] = 0
+    new_z[bidx, p_row] = (torch.arange(n, device=dev) == q).to(torch.uint8)
+    new_r[bidx, p_row] = rand_bit
+    return Tableau(new_x, new_z, new_r), rand_bit
 
-    # rowsum(i, p) for every row i != p with x_iq = 1
-    targets = (xq == 1) & (row_ids[None, :] != p_row[:, None])  # [B, 2n]
-    g_sum = _g_exponent(px[:, None, :], pz[:, None, :], t.x, t.z).sum(
-        dim=-1, dtype=torch.int32)
-    r4 = (2 * t.r.to(torch.int32) + 2 * pr.to(torch.int32)[:, None]
-          + g_sum) % 4
-    new_r = torch.where(targets, (r4 // 2).to(torch.uint8), t.r)
-    new_x = torch.where(targets[:, :, None], t.x ^ px[:, None, :], t.x)
-    new_z = torch.where(targets[:, :, None], t.z ^ pz[:, None, :], t.z)
 
-    # copy row p into its destabilizer slot p - n
-    dest = row_ids[None, :] == (p_row - n)[:, None]
-    new_x = torch.where(dest[:, :, None], px[:, None, :], new_x)
-    new_z = torch.where(dest[:, :, None], pz[:, None, :], new_z)
-    new_r = torch.where(dest, pr[:, None], new_r)
-
-    # row p becomes +/- Z_q with the random bit as its sign = the outcome
-    at_p = row_ids[None, :] == p_row[:, None]
-    zq_col = (torch.arange(n, device=dev) == q).to(torch.uint8)
-    new_x = torch.where(at_p[:, :, None], torch.zeros_like(new_x), new_x)
-    new_z = torch.where(at_p[:, :, None], zq_col, new_z)
-    new_r = torch.where(at_p, rand_bit[:, None], new_r)
-    random_state = Tableau(new_x, new_z, new_r)
-
-    # ---- deterministic branch: the sign of the product of the stabilizer
-    # rows n+i whose destabilizers anticommute with Z_q. The rows commute,
-    # so the ordered product's phase is
-    #   i^( sum_i m_i (2 r_i + |x_i & z_i|) + 2 * sum_{j<l} z_j . x_l )
-    # with the pair term from an exclusive prefix count.
-    m = (xq[:, :n] == 1).to(torch.int32)  # [B, n]
-    sx = t.x[:, n:, :].to(torch.int32) * m[:, :, None]
-    sz = t.z[:, n:, :].to(torch.int32) * m[:, :, None]
-    prefix_z = torch.cumsum(sz, dim=1) - sz
-    pair = (sx * prefix_z).sum(dim=(1, 2))
-    y = (t.x[:, n:, :] & t.z[:, n:, :]).sum(dim=-1, dtype=torch.int32)
-    base = (m * (2 * t.r[:, n:].to(torch.int32) + y)).sum(dim=1)
-    det_outcome = (((base + 2 * pair) % 4) // 2).to(torch.uint8)
-
-    outcome = torch.where(is_random, rand_bit, det_outcome)
-    return select(is_random, random_state, t), outcome
+def _deterministic_outcomes(t: Tableau, cols: torch.Tensor) -> torch.Tensor:
+    """The deterministic branch of `_measure_z` for M qubits at once
+    (cols = their columns of x, [B, 2n, M]; each outcome deterministic):
+    the sign of the product of the stabilizer rows n+i whose
+    destabilizers anticommute with Z_q. The rows commute, so the ordered
+    product's phase is
+      i^( sum_i m_i (2 r_i + |x_i & z_i|) + 2 * sum_{j<l} m_j m_l z_j . x_l )
+    and only the parity of the pair term counts. The pair term is
+    m^T U m with U the strictly upper triangle of the row products
+    Z X^T mod 2: integer matmuls in float32, exact while n(n + 2) < 2^24.
+    Returns [B, M] uint8."""
+    n = t.n
+    m = cols[:, :n, :].transpose(1, 2).to(torch.float32)  # [B, M, n]
+    xs, zs = t.x[:, n:, :], t.z[:, n:, :]
+    products = torch.matmul(zs.to(torch.float32),
+                            xs.to(torch.float32).transpose(1, 2))
+    upper = torch.triu(torch.remainder(products, 2), diagonal=1)
+    pair = (torch.matmul(m, upper) * m).sum(dim=-1)  # [B, M]
+    y = (xs & zs).sum(dim=-1, dtype=torch.int32)  # [B, n]
+    weight = (2 * t.r[:, n:].to(torch.int32) + y).to(torch.float32)
+    base = torch.matmul(m, weight[:, :, None])[:, :, 0]  # [B, M]
+    return (((base + 2 * pair).to(torch.int64) >> 1) & 1).to(torch.uint8)
 
 
 def measure_z(t: Tableau, q: int, generator: torch.Generator | None = None,
@@ -377,9 +419,9 @@ def measure_z(t: Tableau, q: int, generator: torch.Generator | None = None,
     random (the tableau is updated by the AG row operations, the outcome
     is the sample's collapse bit); otherwise it is deterministic (the sign
     of the product of stabilizers whose destabilizer partners
-    anticommute). Both branches are computed batch-wide and selected per
-    sample. The collapse bits are ``rand_bit`` [B] or drawn from
-    ``generator``. Returns (new_tableau, outcomes [B] uint8)."""
+    anticommute). Each branch runs on its own samples only. The collapse
+    bits are ``rand_bit`` [B] or drawn from ``generator``. Returns
+    (new_tableau, outcomes [B] uint8)."""
     t, out = measure_many(t, [q], generator, rand_bits=None
                           if rand_bit is None else rand_bit[:, None])
     return t, out[:, 0]
@@ -389,17 +431,29 @@ def measure_many(t: Tableau, qubits, generator: torch.Generator | None = None,
                  *, rand_bits: torch.Tensor | None = None):
     """Measure a sequence of qubits in Z, in order. Collapse bits:
     ``rand_bits`` [B, M] or one [B, M] draw from ``generator``; column m
-    serves qubit m. Returns (state, outcomes [B, M] uint8)."""
+    serves qubit m. Measuring a qubit whose outcome is deterministic in
+    every sample leaves the state as it is, so a run of such qubits is
+    read at once. Returns (state, outcomes [B, M] uint8)."""
     qs = host_qubits(qubits)
     bits = resolve_collapse_bits(generator, rand_bits, t.batch, len(qs),
                                  t.x.device)
-    outs = []
-    for m, q in enumerate(qs):
-        t, out = _measure_z(t, q, bits[:, m])
-        outs.append(out)
-    if not outs:
-        return t, bits[:, :0]
-    return t, torch.stack(outs, dim=1)
+    outs = torch.empty_like(bits)
+    n = t.n
+    cap = max(1, (1 << 26) // (4 * t.batch * n))  # [B, M, n] float32 temps
+    m = 0
+    while m < len(qs):
+        cols = t.x[:, :, _index(qs[m:m + cap], t.x.device)]  # [B, 2n, M']
+        rnd = cols[:, n:].to(torch.bool).any(dim=1)  # [B, M']
+        counts = rnd.sum(dim=0).tolist()  # one host read
+        k = next((i for i, c in enumerate(counts) if c), len(counts))
+        if k:  # deterministic in every sample: the state stays as it is
+            outs[:, m:m + k] = _deterministic_outcomes(t, cols[:, :, :k])
+            m += k
+        else:
+            t, outs[:, m] = _measure_column(t, qs[m], cols[:, :, 0],
+                                            rnd[:, 0], counts[0], bits[:, m])
+            m += 1
+    return t, outs
 
 
 def reset_z(t: Tableau, q: int, generator: torch.Generator | None = None,
@@ -419,5 +473,6 @@ def reset_many(t: Tableau, qubits, generator: torch.Generator | None = None,
                                  t.x.device)
     for m, q in enumerate(qs):
         t, outcome = _measure_z(t, q, bits[:, m])
-        t = select(outcome, apply_x(t, q), t)
+        # X on q where the outcome was 1: signs of the rows holding Z on q
+        t = Tableau(t.x, t.z, t.r ^ (outcome[:, None] & t.z[:, :, q]))
     return t

@@ -7,8 +7,8 @@ phase function is evaluated bit-sliced:
 
     g-sum = popcount(plus-mask) - popcount(minus-mask)   (mod 4)
 
-with the plus/minus masks built from the same case analysis as the
-unpacked `tableau._g_exponent`, word-parallel.
+with the plus/minus masks built from the Aaronson-Gottesman case
+analysis (`_g_sum_words`), word-parallel.
 
 Layout: x, z are [B, 2n, W] int32 (W = ceil(n/32); bit q%32 of word q//32,
 bit 31 included: an int32 holds the reference's uint32 pattern), r is
@@ -31,7 +31,6 @@ import torch
 
 from qcss_tpu_torch._cuda import resolve_device
 from qcss_tpu_torch.ops import gf2_torch
-from qcss_tpu_torch.ops.gf2_torch import popcount32
 from qcss_tpu_torch.sim import tableau as tb
 from qcss_tpu_torch.sim.tableau import host_qubits
 
@@ -59,6 +58,16 @@ class PackedTableau:
     def clone(self) -> "PackedTableau":
         return PackedTableau(self.x.clone(), self.z.clone(), self.r.clone(),
                              self.n)
+
+
+def _popcount_rows(words: torch.Tensor) -> torch.Tensor:
+    """Set bits over the last axis of int32 words, as int32: a byte-wise
+    SWAR count on the words' uint8 view (unsigned, one byte an element)."""
+    v = words.contiguous().view(torch.uint8)
+    v = v - ((v >> 1) & 0x55)
+    v = (v & 0x33) + ((v >> 2) & 0x33)
+    v = (v + (v >> 4)) & 0x0F
+    return v.sum(-1, dtype=torch.int32)
 
 
 def _mask(b: int) -> int:
@@ -181,19 +190,19 @@ def apply_pauli_frame(t: PackedTableau, x_flips_packed: torch.Tensor,
     by the parity of its anticommuting positions — per-word popcounts
     summed over words, reduced mod 2."""
     anti = (
-        popcount32(t.z & gf2_torch.words32(x_flips_packed)[:, None, :]).sum(-1)
-        + popcount32(t.x & gf2_torch.words32(z_flips_packed)[:, None, :]
-                     ).sum(-1)
+        _popcount_rows(t.z & gf2_torch.words32(x_flips_packed)[:, None, :])
+        + _popcount_rows(t.x & gf2_torch.words32(z_flips_packed)[:, None, :])
     ) & 1
     return t.replace(r=t.r ^ anti.to(torch.uint8))
 
 
 def select(mask, new: PackedTableau, old: PackedTableau) -> PackedTableau:
     m = mask.to(torch.bool)
+    mw = -(m.to(torch.int32))  # all-ones words where set
     return PackedTableau(
-        torch.where(m[:, None, None], new.x, old.x),
-        torch.where(m[:, None, None], new.z, old.z),
-        torch.where(m[:, None], new.r, old.r),
+        tb._blend(mw[:, None, None], new.x, old.x),
+        tb._blend(mw[:, None, None], new.z, old.z),
+        tb._blend(-(m.to(torch.uint8))[:, None], new.r, old.r),
         old.n,
     )
 
@@ -207,7 +216,7 @@ def _g_sum_words(x1, z1, x2, z2) -> torch.Tensor:
     g(x1, z1, x2, z2), where inputs are packed words. Returns int32 with
     the same leading shape (P - M, each position contributing -1/0/+1).
 
-    Case analysis identical to `tableau._g_exponent`:
+    The Aaronson-Gottesman case analysis:
       source Y (x1 z1): +1 where target is Z-only, -1 where X-only
       source X        : +1 where target is Y,     -1 where Z-only
       source Z        : +1 where target is X-only, -1 where Y
@@ -216,7 +225,7 @@ def _g_sum_words(x1, z1, x2, z2) -> torch.Tensor:
     nx2, nz2 = ~x2, ~z2
     plus = (x1 & z1 & z2 & nx2) | (x1 & nz1 & x2 & z2) | (nx1 & z1 & x2 & nz2)
     minus = (x1 & z1 & x2 & nz2) | (x1 & nz1 & nx2 & z2) | (nx1 & z1 & x2 & z2)
-    return popcount32(plus).sum(-1) - popcount32(minus).sum(-1)
+    return _popcount_rows(plus) - _popcount_rows(minus)
 
 
 def _prefix_xor(v: torch.Tensor, dim: int) -> torch.Tensor:
@@ -235,57 +244,98 @@ def _prefix_xor(v: torch.Tensor, dim: int) -> torch.Tensor:
 
 def _measure_z(t: PackedTableau, q: int, rand_bit: torch.Tensor):
     """One Z measurement of qubit q with collapse bits ``rand_bit`` [B]:
-    the reference's branch-masked algorithm with rowsums over words."""
-    B, two_n, W = t.x.shape
-    n = t.n
-    dev = t.x.device
-    row_ids = torch.arange(two_n, device=dev)
-    bidx = torch.arange(B, device=dev)
-
+    the reference's algorithm with rowsums over words."""
     xq = _col_bit(t.x, q)  # [B, 2n]
-    stab_anti = xq[:, n:] == 1
-    is_random = stab_anti.any(dim=1)
+    is_random = xq[:, t.n:].to(torch.bool).any(dim=1)
+    return _measure_column(t, q, xq, is_random, int(is_random.sum()),
+                           rand_bit)
 
-    # ---- random branch: argmax takes the first (lowest) anticommuting row
-    p_row = n + torch.argmax(stab_anti.to(torch.uint8), dim=1)
+
+def _measure_column(t: PackedTableau, q: int, xq: torch.Tensor,
+                    is_random: torch.Tensor, n_random: int,
+                    rand_bit: torch.Tensor):
+    """`_measure_z` given the bits of x at q, which samples' outcomes are
+    random and how many; as in `tableau._measure_column`, each branch
+    runs on its own samples only."""
+    B, n = t.batch, t.n
+    if n_random == 0:
+        return t, _deterministic_outcomes(t, xq[:, :, None])[:, 0]
+    if n_random == B:
+        return _random_branch(t, xq, q, rand_bit)
+    rs = is_random.nonzero()[:, 0]
+    ds = (~is_random).nonzero()[:, 0]
+    sub, out_r = _random_branch(
+        PackedTableau(t.x[rs], t.z[rs], t.r[rs], n), xq[rs], q, rand_bit[rs])
+    new = t.clone()
+    new.x[rs], new.z[rs], new.r[rs] = sub.x, sub.z, sub.r
+    outcome = torch.empty_like(rand_bit)
+    outcome[rs] = out_r
+    outcome[ds] = _deterministic_outcomes(
+        PackedTableau(t.x[ds], t.z[ds], t.r[ds], n), xq[ds, :, None])[:, 0]
+    return new, outcome
+
+
+def _random_branch(t: PackedTableau, xq: torch.Tensor, q: int,
+                   rand_bit: torch.Tensor):
+    """The random branch on samples whose outcome is random (see
+    `tableau._random_branch`; every target row but the destabilizer
+    p - n commutes with row p, so the phase exponent is even)."""
+    B, n, W = t.batch, t.n, t.words
+    dev = t.x.device
+    bidx = torch.arange(B, device=dev)
+    p_row = n + torch.argmax(xq[:, n:], dim=1)
     px, pz, pr = t.x[bidx, p_row], t.z[bidx, p_row], t.r[bidx, p_row]
-
-    targets = (xq == 1) & (row_ids[None, :] != p_row[:, None])
+    targets = xq.clone()  # [B, 2n] 0/1
+    targets[bidx, p_row] = 0
     g = _g_sum_words(px[:, None, :], pz[:, None, :], t.x, t.z)  # [B, 2n]
-    r4 = (2 * t.r.to(torch.int32) + 2 * pr.to(torch.int32)[:, None] + g) % 4
-    new_r = torch.where(targets, (r4 // 2).to(torch.uint8), t.r)
-    new_x = torch.where(targets[:, :, None], t.x ^ px[:, None, :], t.x)
-    new_z = torch.where(targets[:, :, None], t.z ^ pz[:, None, :], t.z)
-
-    dest = row_ids[None, :] == (p_row - n)[:, None]
-    new_x = torch.where(dest[:, :, None], px[:, None, :], new_x)
-    new_z = torch.where(dest[:, :, None], pz[:, None, :], new_z)
-    new_r = torch.where(dest, pr[:, None], new_r)
-
-    at_p = row_ids[None, :] == p_row[:, None]
+    half = ((g >> 1) & 1).to(torch.uint8)
+    new_r = t.r ^ (targets & (pr[:, None] ^ half))
+    tw = -(targets.to(torch.int32))[:, :, None]  # all-ones words on targets
+    new_x = t.x ^ (tw & px[:, None, :])
+    new_z = t.z ^ (tw & pz[:, None, :])
+    new_x[bidx, p_row - n] = px
+    new_z[bidx, p_row - n] = pz
+    new_r[bidx, p_row - n] = pr
     w, b = _addr(q)
     zq_word = torch.zeros(W, dtype=torch.int32, device=dev)
     zq_word[w] = _mask(b)
-    new_x = torch.where(at_p[:, :, None], torch.zeros_like(new_x), new_x)
-    new_z = torch.where(at_p[:, :, None], zq_word, new_z)
-    new_r = torch.where(at_p, rand_bit[:, None], new_r)
-    random_state = PackedTableau(new_x, new_z, new_r, n)
+    new_x[bidx, p_row] = 0
+    new_z[bidx, p_row] = zq_word
+    new_r[bidx, p_row] = rand_bit
+    return PackedTableau(new_x, new_z, new_r, n), rand_bit
 
-    # ---- deterministic branch: the closed-form commuting-product phase
-    # (see `tableau._measure_z`); the ordered pair term needs only its
-    # parity, so the exclusive prefix of the selected z rows is a
-    # cumulative XOR over packed words.
-    m = xq[:, :n] == 1  # [B, n] selected stabilizer rows
-    sx = torch.where(m[:, :, None], t.x[:, n:, :], 0)
-    sz = torch.where(m[:, :, None], t.z[:, n:, :], 0)
-    prefix_excl = _prefix_xor(sz, 1) ^ sz
-    pair_parity = popcount32(sx & prefix_excl).sum(dim=(1, 2)) & 1
-    y = popcount32(t.x[:, n:, :] & t.z[:, n:, :]).sum(-1)
-    base = (m.to(torch.int32) * (2 * t.r[:, n:].to(torch.int32) + y)).sum(1)
-    det_outcome = (((base + 2 * pair_parity) % 4) // 2).to(torch.uint8)
 
-    outcome = torch.where(is_random, rand_bit, det_outcome)
-    return select(is_random, random_state, t), outcome
+def _deterministic_outcomes(t: PackedTableau,
+                            cols: torch.Tensor) -> torch.Tensor:
+    """The deterministic branch of `_measure_z` for M qubits at once (cols
+    = their bits of x, [B, 2n, M]): the closed-form commuting-product
+    phase (see `tableau._deterministic_outcomes`); the ordered pair term
+    needs only its parity, so the exclusive prefix of the selected z rows
+    is a cumulative XOR over packed words. Returns [B, M] uint8."""
+    n = t.n
+    m = cols[:, :n, :].transpose(1, 2)  # [B, M, n] selected rows, 0/1
+    mw = -(m.to(torch.int32))[:, :, :, None]
+    sx = t.x[:, None, n:, :] & mw  # [B, M, n, W]
+    sz = t.z[:, None, n:, :] & mw
+    prefix_excl = _prefix_xor(sz, 2) ^ sz
+    pair_parity = _popcount_rows(sx & prefix_excl).sum(dim=2) & 1
+    y = _popcount_rows(t.x[:, n:, :] & t.z[:, n:, :])  # [B, n]
+    base = (m.to(torch.int32)
+            * (2 * t.r[:, n:].to(torch.int32) + y)[:, None, :]).sum(-1)
+    return (((base + 2 * pair_parity) % 4) // 2).to(torch.uint8)
+
+
+def _columns(t: PackedTableau, qs: list[int]) -> torch.Tensor:
+    """The bits of x at qubits ``qs``: [B, 2n, M] uint8 (shifts of one
+    word column when the qubits share a word, as a block's do)."""
+    dev = t.x.device
+    words = [q // WORD for q in qs]
+    b = torch.tensor([q % WORD for q in qs], device=dev, dtype=torch.int32)
+    if len(set(words)) == 1:
+        x = t.x[:, :, words[0]:words[0] + 1]
+    else:
+        x = t.x[:, :, torch.tensor(words, device=dev)]
+    return ((x >> b) & 1).to(torch.uint8)
 
 
 def measure_z(t: PackedTableau, q: int,
@@ -302,19 +352,32 @@ def measure_many(t: PackedTableau, qubits,
                  generator: torch.Generator | None = None, *,
                  rand_bits: torch.Tensor | None = None):
     """Measure the qubits in Z, in order: a loop of `measure_z`, the plain
-    version of K9. Collapse bits ``rand_bits`` [B, M], or one [B, M] draw
-    from ``generator`` (`tableau.collapse_bits`). Returns
+    version of K9, in which a run of qubits whose outcomes are
+    deterministic in every sample is read at once (measuring such a qubit
+    leaves the state as it is).
+    Collapse bits ``rand_bits`` [B, M], or one [B, M] draw from
+    ``generator`` (`tableau.collapse_bits`). Returns
     (state, outcomes [B, M] uint8)."""
     qs = host_qubits(qubits)
     bits = tb.resolve_collapse_bits(generator, rand_bits, t.batch,
                                     len(qs), t.x.device)
-    outs = []
-    for m, q in enumerate(qs):
-        t, out = _measure_z(t, q, bits[:, m])
-        outs.append(out)
-    if not outs:
-        return t, bits[:, :0]
-    return t, torch.stack(outs, dim=1)
+    outs = torch.empty_like(bits)
+    n = t.n
+    cap = max(1, (1 << 26) // (4 * t.batch * n * t.words))  # [B, M, n, W]
+    m = 0
+    while m < len(qs):
+        cols = _columns(t, qs[m:m + cap])  # [B, 2n, M']
+        rnd = cols[:, n:].to(torch.bool).any(dim=1)  # [B, M']
+        counts = rnd.sum(dim=0).tolist()  # one host read
+        k = next((i for i, c in enumerate(counts) if c), len(counts))
+        if k:  # deterministic in every sample: the state stays as it is
+            outs[:, m:m + k] = _deterministic_outcomes(t, cols[:, :, :k])
+            m += k
+        else:
+            t, outs[:, m] = _measure_column(t, qs[m], cols[:, :, 0],
+                                            rnd[:, 0], counts[0], bits[:, m])
+            m += 1
+    return t, outs
 
 
 def reset_z(t: PackedTableau, q: int,

@@ -31,6 +31,7 @@ PORT_MODULES = [
     "qcss_tpu_torch.benchmarks.belief_bench",
     "qcss_tpu_torch.benchmarks.bp_bench",
     "qcss_tpu_torch.benchmarks.device_uf_bench",
+    "qcss_tpu_torch.benchmarks.ftqc_programs",
     "qcss_tpu_torch.benchmarks.profiling",
     "qcss_tpu_torch.benchmarks.sideinfo_bench",
     "qcss_tpu_torch.benchmarks.surgery_bench",
@@ -89,6 +90,8 @@ PORT_MODULES = [
     "qcss_tpu_torch.experiments.surgery_t",
     "qcss_tpu_torch.ftqc",
     "qcss_tpu_torch.ftqc.engines",
+    "qcss_tpu_torch.ftqc.rewrite",
+    "qcss_tpu_torch.ftqc.schedule",
     "qcss_tpu_torch.native",
     "qcss_tpu_torch.ops.cuda_gf2",
     "qcss_tpu_torch.ops.gf2",
@@ -231,6 +234,10 @@ COPIED_DEFS = [
                                          "build_circuit_schedule"]),
     ("experiments/concatenated.py", ["repetition_spacetime_graph",
                                      "_build_program"]),
+    ("ftqc/schedule.py", ["OP_PREP_ZERO", "OP_GATE", "OP_EC_ALL",
+                          "OP_MEASURE_TRIAL", "OP_VOTE_STORE", "OP_CLASSICAL",
+                          "OP_NOP", "GATE_IDS", "circuit_depth",
+                          "MacroProgram", "lower", "macro_rows"]),
 ]
 
 
@@ -238,6 +245,20 @@ COPIED_DEFS = [
                          ids=[r for r, _ in COPIED_DEFS])
 def test_copied_definitions(rel, names):
     assert _segments(_port(rel), names) == _segments(_rewired(rel), names)
+
+
+def test_encoded_program_validation_copied():
+    # `_validate` is the reference's text; `__init__` keeps its checks and
+    # messages (tests/test_torch_ftqc.py holds them over a grid)
+    def method(text, name):
+        cls = next(node for node in ast.parse(text).body
+                   if getattr(node, "name", None) == "EncodedProgram")
+        node = next(node for node in cls.body
+                    if getattr(node, "name", None) == name)
+        return ast.get_source_segment(text, node)
+
+    assert method(_port("ftqc/rewrite.py"), "_validate") == \
+        method(_rewired("ftqc/rewrite.py"), "_validate")
 
 
 def test_fault_distance_copied_up_to_the_witness():
