@@ -186,6 +186,28 @@ the stencil kernel:
    version bit for bit and timed on states the path measures (a block
    measurement of the packed X program: Steane, M=7, and surface-5,
    M=25, B=16384); one JSON line `ftqc`;
+   main path 13, the Pauli-frame FT engine (`rewrite_program(...,
+   tableau='frames')`, `FrameEngine`, parallel EC; no kernel, and K9 must
+   launch 0 times): (a) the programs of (12 a) and the deterministic set
+   of test_ftqc_frames.py (SSX, X then CNOT, Pauli feedback, repeat-until
+   with a Pauli body) on 'frames' at B=1024, each at its gold with
+   `__prep_fail__` 0 or refused with UnsupportedProgramError, the refused
+   set equal to the JAX package's (`ftqc_programs.FRAMES_REFUSED`); (b)
+   frames against unpacked bit for bit (registers, prep_fail, frames,
+   votes) at B=16384 under gate, readout and reset noise, under idle
+   noise, and with ec_extractions=2 on dedicated ancillas, with the shots
+   carrying a frame counted; (c) the two-block X program under p_gate2 =
+   p_idle = 3e-4 with dedicated ancillas, parallel against serial EC at
+   B=16384: parallel fails less than half as often, each count against
+   the JAX package's by a two-sample 99.9% test, and noiseless parallel
+   EC exact; (d) `benchmarks/ftqc_bench.py` on 'frames' (Steane and
+   surface d=5, B=16384, 2 warm and 3 timed calls, each fenced by a host
+   read, correct fraction 1.0), its EC scaling at n_logical = 1, 2, 4
+   (serial and parallel) and `benchmarks/idle_bench.py` at its defaults
+   (dedicated-parallel x 2 below dedicated-serial's failures), shots/s
+   beside the card's name and power limit; (e) K9's launches over the
+   path (0), its seconds by part, peak memory, and frames' shots/s beside
+   path 12's unpacked and packed rows; one JSON line `ftqc_frames`;
 9. times each kernel, its plain version and (K6, K7) the dense matmul
    form at the main paths' shapes, beside each kernel's bound, checking
    each timed output against the plain version's; K9 and K2 through
@@ -339,6 +361,26 @@ FTQC_RATE_P = 0.01                    # p_gate1 = p_gate2 = p_meas
 FTQC_RATE_REF = (287, 70, 4096)
 FTQC_BENCH_BATCH = 16384              # benchmarks/ftqc_bench.py's bench
 FTQC_BENCH_CODES = ("steane", "surface5")
+# path 13, the Pauli-frame FT engine and parallel EC
+FRAMES_GOLD_BATCH = 1024
+FRAMES_EQ_BATCH = 16384               # frames == unpacked, one seed
+FRAMES_EQ_RUNS = (
+    ("gate_meas_reset", dict(p_gate1=2e-4, p_gate2=2e-3, p_meas=2e-3,
+                             p_reset=2e-3), {}),
+    ("idle", dict(p_gate2=2e-3, p_meas=2e-3, p_idle=1e-3), {}),
+    ("ec2_dedicated", dict(p_gate2=3e-3, p_meas=5e-3),
+     dict(ec_extractions=2, ancillas="dedicated")),
+)
+FRAMES_PAR_BATCH = 16384
+FRAMES_PAR_NOISE = (3e-4, 3e-4)       # p_gate2, p_idle
+# The JAX package's failure counts (any ro != 1) for the two-block X
+# program at FRAMES_PAR_NOISE, dedicated ancillas, 'frames': 143 with
+# ec_schedule='parallel' and 334 with 'serial', of 4096, from
+# `rewrite_program(p, steane(), noise=NoiseModel(p_gate2=3e-4,
+# p_idle=3e-4), tableau="frames", ancillas="dedicated",
+# ec_schedule=s).run(4096, key=jax.random.key(2))` on the CPU (JAX 0.9.0)
+FRAMES_PAR_REF = (143, 334, 4096)
+FRAMES_SCALING = (1, 2, 4)            # ftqc_bench --ec-scaling widths
 Z999 = 3.2905
 
 
@@ -2072,6 +2114,193 @@ def path12(dev, int_ops_per_s, smi):
     return out, k9
 
 
+def path13(dev, smi, ftqc12):
+    """Main path 13, the Pauli-frame FT engine (`rewrite_program(...,
+    tableau='frames')`, `FrameEngine`) and parallel EC, with K9 launched
+    by none of it: (a) the golds on 'frames' and the refusals against the
+    JAX package's set, (b) frames against unpacked bit for bit under
+    noise, (c) parallel against serial EC under idle noise and against
+    the JAX package's counts, (d) `ftqc_bench` and `idle_bench`, (e) K9's
+    launches (0), the seconds by part, peak memory and frames' shots/s
+    beside path 12's rows (module docstring). Returns the `ftqc_frames`
+    JSON object."""
+    import numpy as np
+    import torch
+
+    from qcss_tpu_torch.benchmarks import ftqc_bench, idle_bench
+    from qcss_tpu_torch.benchmarks import ftqc_programs as fp
+    from qcss_tpu_torch.circuits import Program
+    from qcss_tpu_torch.codes import families
+    from qcss_tpu_torch.errors import UnsupportedProgramError
+    from qcss_tpu_torch.ftqc import rewrite_program, schedule
+    from qcss_tpu_torch.sim import cuda_measure
+    from qcss_tpu_torch.sim.noise import NoiseModel
+
+    out = {"card": smi}
+    seconds = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    cuda_measure.launches = 0
+    t_path = time.perf_counter()
+
+    # -- (a) the golds on 'frames', and the programs it refuses
+    t_part = time.perf_counter()
+    refused, by_program = {}, {}
+    for name, spec in {**fp.PROGRAMS, **fp.FRAMES_PROGRAMS}.items():
+        t1 = time.perf_counter()
+        prog, code = fp.build(name)
+        try:
+            enc = rewrite_program(prog, code, tableau="frames", device=dev,
+                                  **spec.options)
+            res = enc.run(FRAMES_GOLD_BATCH, 0)
+        except UnsupportedProgramError as exc:
+            refused[name] = str(exc)
+            continue
+        prep_fail = int(res["__prep_fail__"].sum())
+        if not spec.gold(res) or prep_fail:
+            raise RuntimeError(
+                f"{name} ({spec.source}) on 'frames': outcomes "
+                f"{np.unique(res['ro'], axis=0)} miss the gold, or "
+                f"{prep_fail} prep_fail shots")
+        by_program[name] = round(time.perf_counter() - t1, 3)
+    want = fp.FRAMES_REFUSED
+    log(f"path 13 (a) 'frames': {len(by_program)} programs at "
+        f"B={FRAMES_GOLD_BATCH}, every outcome its gold, prep_fail 0 (by "
+        f"program {by_program}); refused here {sorted(refused)}, by the JAX "
+        f"package {sorted(want)}")
+    if sorted(refused) != sorted(want) or any(
+            want[k] not in refused[k] for k in want):
+        raise RuntimeError(f"'frames' refuses {refused}; the JAX package "
+                           f"refuses {want}")
+    out["golds"] = {"programs": sorted(by_program), "refused": sorted(refused),
+                    "refused_by_jax": sorted(want), "s_by_program": by_program}
+    seconds["a_golds"] = time.perf_counter() - t_part
+
+    # -- (b) frames against unpacked, bit for bit, on one seed
+    t_part = time.perf_counter()
+    steane = families.steane()
+    macro = schedule.lower(fp.x_program(), steane)
+    refs = schedule.reference_outcomes(macro, steane, device=dev)
+    out["equal"] = {}
+    for label, rates, options in FRAMES_EQ_RUNS:
+        states = {}
+        for tableau in ("frames", "unpacked"):
+            ex = schedule.MacroExecutor(steane, 1, NoiseModel(**rates),
+                                        tableau_engine=tableau, device=dev,
+                                        **options)
+            states[tableau] = ex.execute(
+                macro, FRAMES_EQ_BATCH, seed=11,
+                ref_outs=refs if tableau == "frames" else None)
+        f, u = states["frames"], states["unpacked"]
+        for field in ("memory", "prep_fail", "x_frames", "z_frames",
+                      "votes"):
+            if not torch.equal(getattr(f, field), getattr(u, field)):
+                raise RuntimeError(f"path 13 (b) {label}: frames and unpacked"
+                                   f" differ in {field}")
+        row = {"shots_with_frame": int((f.tab.x.any(1) | f.tab.z.any(1))
+                                       .sum()),
+               "frame_bits": int(f.x_frames.sum() + f.z_frames.sum()),
+               "failures": int((f.memory[:, 0] != 1).sum()),
+               "prep_fail": int(f.prep_fail.sum())}
+        out["equal"][label] = row
+        log(f"path 13 (b) {label} {rates} {options} B={FRAMES_EQ_BATCH}: "
+            f"frames == unpacked (registers, prep_fail, frames, votes); "
+            f"{row}")
+        if not row["shots_with_frame"]:
+            raise RuntimeError(f"path 13 (b) {label}: no shot carries a "
+                               f"fault")
+    seconds["b_equal"] = time.perf_counter() - t_part
+
+    # -- (c) parallel EC against serial under idle noise
+    t_part = time.perf_counter()
+    two = Program()
+    ro = two.declare("ro", 2)
+    two.x(0).x(1).measure(0, ro[0]).measure(1, ro[1])
+    noise = NoiseModel(p_gate2=FRAMES_PAR_NOISE[0], p_idle=FRAMES_PAR_NOISE[1])
+    fails = {}
+    for sched in ("parallel", "serial"):
+        res = rewrite_program(two, steane, noise=noise, tableau="frames",
+                              ancillas="dedicated", ec_schedule=sched,
+                              device=dev).run(FRAMES_PAR_BATCH, 2)
+        fails[sched] = int((res["ro"] != [1, 1]).any(axis=1).sum())
+    ref_p, ref_s, ref_n = FRAMES_PAR_REF
+    checks = {s: two_sample_ok(fails[s], FRAMES_PAR_BATCH, r, ref_n)
+              for s, r in (("parallel", ref_p), ("serial", ref_s))}
+    quiet = rewrite_program(two, steane, tableau="frames",
+                            ancillas="dedicated", ec_schedule="parallel",
+                            device=dev).run(FRAMES_GOLD_BATCH, 3)
+    out["parallel_ec"] = {"fails": fails, "batch": FRAMES_PAR_BATCH,
+                          "jax": {"parallel": ref_p, "serial": ref_s,
+                                  "batch": ref_n}}
+    log(f"path 13 (c) two-block X, p_gate2={FRAMES_PAR_NOISE[0]} p_idle="
+        f"{FRAMES_PAR_NOISE[1]}, dedicated, B={FRAMES_PAR_BATCH}: parallel "
+        f"{fails['parallel']}, serial {fails['serial']} failures (the JAX "
+        f"package {ref_p} / {ref_s} of {ref_n}; allowed differences "
+        f"{checks['parallel'][1]:.5f} / {checks['serial'][1]:.5f}); "
+        f"noiseless parallel [1, 1] on {FRAMES_GOLD_BATCH} shots: "
+        f"{bool((quiet['ro'] == [1, 1]).all())}")
+    if not (fails["parallel"] * 2 < fails["serial"]
+            and all(ok for ok, _ in checks.values())
+            and (quiet["ro"] == [1, 1]).all()):
+        raise RuntimeError(f"path 13 (c): parallel EC {fails} against the "
+                           f"JAX package's {FRAMES_PAR_REF}")
+    seconds["c_parallel"] = time.perf_counter() - t_part
+
+    # -- (d) the benches: ftqc_bench on 'frames', its EC scaling, idle_bench
+    t_part = time.perf_counter()
+    out["bench"] = {}
+    for code_name in FTQC_BENCH_CODES:
+        row = ftqc_bench.bench(fp.CODES[code_name](families), "frames",
+                               FTQC_BENCH_BATCH, device=dev)
+        out["bench"][code_name] = row
+        log(f"path 13 (d) ftqc_bench {code_name} 'frames' "
+            f"B={FTQC_BENCH_BATCH}: {3 * FTQC_BENCH_BATCH / row['timed_s']}"
+            f" shots/s, correct fraction {row['correct_fraction']} ({smi})")
+        if row["correct_fraction"] != 1.0:
+            raise RuntimeError(f"ftqc_bench {code_name} 'frames': noiseless "
+                               f"outcomes not all 1")
+    out["ec_scaling"] = []
+    for n_logical in FRAMES_SCALING:
+        for sched in ("serial", "parallel"):
+            row = ftqc_bench.ec_scaling(n_logical, sched, FTQC_BENCH_BATCH,
+                                        device=dev)
+            out["ec_scaling"].append(row)
+            log(f"path 13 (d) ec_scaling {json.dumps(row)} ({smi})")
+            if row["correct_fraction"] != 1.0:
+                raise RuntimeError(f"ec_scaling {n_logical} {sched}: "
+                                   f"noiseless outcomes not all 1")
+    idle = idle_bench.run(NoiseModel(p_gate2=FRAMES_PAR_NOISE[0],
+                                     p_idle=FRAMES_PAR_NOISE[1]), device=dev)
+    out["idle_bench"] = idle
+    for row in idle:
+        log(f"path 13 (d) idle_bench {json.dumps(row)} ({smi})")
+    by_cfg = {(r["ancillas"], r["ec_schedule"]): r["fails"] for r in idle}
+    if not by_cfg[("dedicated", "parallel")] * 2 < \
+            by_cfg[("dedicated", "serial")]:
+        raise RuntimeError(f"idle_bench: dedicated-parallel {by_cfg} does "
+                           f"not halve dedicated-serial's failures")
+    seconds["d_benches"] = time.perf_counter() - t_part
+
+    # -- (e) K9 launched by none of it; time split, memory, shots/s beside
+    #    path 12's rows of the same bench
+    out["k9_launches"] = cuda_measure.launches
+    out["seconds"] = {**seconds, "path": time.perf_counter() - t_path}
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    out["shots_per_sec"] = {
+        code_name: {"frames": 3 * FTQC_BENCH_BATCH
+                    / out["bench"][code_name]["timed_s"],
+                    **{t: ftqc12["bench"][f"{code_name} {t}"]["shots_per_sec"]
+                       for t in FTQC_ENGINES}}
+        for code_name in FTQC_BENCH_CODES}
+    log(f"path 13 (e) K9 launches {out['k9_launches']}; seconds "
+        f"{out['seconds']}; peak {out['peak_mem_gb']:.3f} GiB; ftqc_bench "
+        f"shots/s (frames here, unpacked and packed from path 12) "
+        f"{out['shots_per_sec']} ({smi})")
+    if out["k9_launches"] != 0:
+        raise RuntimeError(f"K9 launched {out['k9_launches']} times over "
+                           f"path 13 (0 expected: frames measure no tableau)")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2656,6 +2885,12 @@ def main() -> int:
     #    for bit, rates against the JAX package's count, the flagship bench
     ftqc, k9_ftqc = path12(dev, int_ops_per_s, smi)
 
+    # -- 8k. main path 13: the Pauli-frame FT engine and parallel EC (no
+    #    kernel: K9 must launch 0 times), the golds and refusals, frames
+    #    against unpacked bit for bit, parallel against serial EC, the
+    #    ftqc and idle benches
+    ftqc_frames = path13(dev, smi, ftqc)
+
     # -- 9. kernel and plain-version times at the main paths' shapes
     defect_big = duf.stencil_defect(dg, dets_big)
     k1_ms = cuda_ms(lambda: device_uf_cuda.stencil_full(dg, defect_big), 20)
@@ -2918,7 +3153,9 @@ def main() -> int:
     logical_kernels = logical_rows.pop("kernels")
     print(json.dumps({"logical": logical_rows}), flush=True)
     print(json.dumps({"ftqc": ftqc}), flush=True)
+    print(json.dumps({"ftqc_frames": ftqc_frames}), flush=True)
     k9_entry["ftqc"] = k9_ftqc
+    k9_entry["ftqc_frames"] = {"launches": ftqc_frames["k9_launches"]}
     print(json.dumps({"kernels": [
         {"name": "uf_stencil_full", "route": "cuda",
          "source": "qcss_tpu_torch/csrc/uf_stencil_full.cu",

@@ -6,7 +6,11 @@ Each `Spec` builds its program through an IR namespace (`Program`,
 this package or by another that has the same builder surface,
 and names the code, the `rewrite_program` options and the gold: a check
 on the registers of every shot (``"__prep_fail__"`` excluded). Used by
-``chip_smoke.py`` (path 12) and by the CPU tests.
+``chip_smoke.py`` (paths 12 and 13) and by the CPU tests.
+
+`FRAMES_PROGRAMS` adds the deterministic set of the JAX package's
+tests/test_ftqc_frames.py that `PROGRAMS` lacks; `FRAMES_REFUSED` names
+the programs of both sets that the JAX package's 'frames' engine refuses.
 """
 
 from __future__ import annotations
@@ -187,16 +191,71 @@ PROGRAMS = {
 }
 
 
+def _x_cnot(ir):
+    prog = ir.Program()
+    ro = prog.declare("ro", 2)
+    prog.x(0).cnot(0, 1)
+    prog.measure(0, ro[0]).measure(1, ro[1])
+    return prog
+
+
+def _pauli_feedback(ir):
+    prog = ir.Program()
+    ro = prog.declare("ro", 2)
+    prog.x(0).measure(0, ro[0])
+    prog.if_then(ro[0], ir.Circuit().x(0))
+    prog.measure(0, ro[1])
+    return prog
+
+
+def _repeat_until_pauli(ir):
+    prog = ir.Program()
+    ro = prog.declare("ro", 2)
+    body = ir.Block().reset(0).x(0).measure(0, ro[0])
+    prog.repeat_until(ro[0], body, max_iters=3)
+    prog.measure(0, ro[1])
+    return prog
+
+
+# tests/test_ftqc_frames.py's deterministic set, where PROGRAMS lacks it
+# (its X, Y, Z, XXX, YZ and HZH sequences are PROGRAMS' own)
+FRAMES_PROGRAMS = {
+    "ssx": Spec(_single("SSX"), _const(1), source="test_ftqc_frames.py:47"),
+    "x_cnot": Spec(_x_cnot, _const(1, 1), source="test_ftqc_frames.py:58"),
+    "pauli_feedback": Spec(_pauli_feedback, _const(1, 0),
+                           source="test_ftqc_frames.py:69"),
+    "repeat_until_pauli": Spec(_repeat_until_pauli, _const(1, 1),
+                               source="test_ftqc_frames.py:79"),
+}
+
+# The programs of PROGRAMS and FRAMES_PROGRAMS that the JAX package refuses
+# on tableau='frames' with UnsupportedProgramError: `EncodedProgram` with
+# tableau='frames' (its `_validate`: a conditional or looped non-Pauli
+# gate), then `schedule.reference_outcomes` on its lowering (a random
+# reference outcome), from
+#   for name in {**PROGRAMS, **FRAMES_PROGRAMS}:
+#       prog, code = build(name, ir)   # ir: the JAX package's IR
+#       enc = EncodedProgram(prog, code, tableau="frames", **options)
+#       schedule.reference_outcomes(schedule.lower(prog, code), code)
+# (JAX 0.9.0 on the CPU).
+FRAMES_REFUSED = {
+    "feedback": "deterministic",
+    "ghz4": "deterministic",
+    "repeat_until": "frames",
+    "classical_feedback": "deterministic",
+}
+
+
 def build(name: str, ir=None):
-    """(program, code) of ``PROGRAMS[name]`` built with the IR namespace
-    ``ir`` and the code families ``ir.families`` (this package's by
-    default)."""
+    """(program, code) of ``PROGRAMS[name]`` or ``FRAMES_PROGRAMS[name]``
+    built with the IR namespace ``ir`` and the code families
+    ``ir.families`` (this package's by default)."""
     if ir is None:
         from qcss_tpu_torch.codes import families
 
         ir = _ir()
         ir.families = families
-    spec = PROGRAMS[name]
+    spec = {**PROGRAMS, **FRAMES_PROGRAMS}[name]
     return spec.build(ir), CODES[spec.code](ir.families)
 
 

@@ -1,19 +1,24 @@
 """Fault-tolerant quantum computation: the FT transpiler on the block-level
-tableau engines.
+engines.
 
 `rewrite_program` validates a raw Clifford program and returns an
 `EncodedProgram`, whose `run` executes it batched over the shots as the
 macro-op rows of `schedule` (FT preparation, Steane EC after every gate,
-2t+1 majority-vote measurement) on the 'unpacked' or 'packed' tableau
-engine (`engines`; the packed one measures blocks with K9 on the card).
+serial or, on frames, parallel across blocks, 2t+1 majority-vote
+measurement) on the 'unpacked' or 'packed' tableau engine or the
+'frames' Pauli-frame engine (`engines`; the packed one measures blocks
+with K9 on the card).
 
-Not ported yet (ROADMAP.md, queue 1): the Pauli-frame engine
-(``tableau='frames'``), the unrolled engine (``engine='unrolled'``, with
-`CodeBlock`, `ExecState` and `FTProtocols`), flag EC, parallel EC and
-magic-state injection.
+Not ported yet (ROADMAP.md, queue 1): the unrolled engine
+(``engine='unrolled'``, with `CodeBlock`, `ExecState` and `FTProtocols`),
+flag EC and magic-state injection.
 """
 
-from qcss_tpu_torch.ftqc.engines import PackedEngine, UnpackedEngine
+from qcss_tpu_torch.ftqc.engines import (
+    FrameEngine,
+    PackedEngine,
+    UnpackedEngine,
+)
 from qcss_tpu_torch.ftqc.rewrite import (
     EncodedProgram,
     rewrite_program,
@@ -22,6 +27,7 @@ from qcss_tpu_torch.ftqc.rewrite import (
 
 __all__ = [
     "EncodedProgram",
+    "FrameEngine",
     "PackedEngine",
     "UnpackedEngine",
     "rewrite_program",

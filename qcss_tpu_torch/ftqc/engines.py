@@ -1,9 +1,9 @@
-"""Block-level tableau engines for the macro-op FTQC executor (PyTorch
-port of `qcss_tpu.ftqc.engines`).
+"""Block-level engines for the macro-op FTQC executor (PyTorch port of
+`qcss_tpu.ftqc.engines`).
 
 The macro executor manipulates whole code blocks (prep networks,
 transversal layers, block measurements, Pauli-frame injections). This
-module provides that block-level interface over two state
+module provides that block-level interface over three state
 representations:
 
 * `UnpackedEngine` — byte-per-bit tableaus (`sim.tableau`); blocks are
@@ -14,25 +14,30 @@ representations:
   transversal layers between blocks are pure word-wide XOR/AND ops. Its
   block measurement is K9 (`sim.cuda_measure`) for a tableau on the card
   and the scan for one on the CPU.
+* `FrameEngine` — per-sample Pauli frames (`sim.frame.Frames`): only each
+  sample's deviation from the noiseless reference run, so a gate costs
+  O(1) bits a sample; the Monte-Carlo fast path (see its docstring).
 
-A block reset is the block measurement followed by X on the qubits that
-read 1. The reference resets qubit by qubit (measure, then X); an X
-conjugation commutes with every later measurement's tableau update (it
-only flips the signs of the rows that anticommute with it, and a rowsum
-carries those flips along), so the two give the same state bit for bit,
-and on the card the packed engine's reset runs K9.
+A tableau block reset is the block measurement followed by X on the
+qubits that read 1. The reference resets qubit by qubit (measure, then
+X); an X conjugation commutes with every later measurement's tableau
+update (it only flips the signs of the rows that anticommute with it, and
+a rowsum carries those flips along), so the two give the same state bit
+for bit, and on the card the packed engine's reset runs K9.
 
-Both expose the same method set. Block indices are host ints; randomness
-comes from a `torch.Generator` where the reference takes a key, and the
-measurement and reset methods also take explicit collapse bits
-(``rand_bits`` [B, n]). Noiseless, with the same collapse bits, the two
-engines give identical states on every block operation. Under noise a
-block circuit draws the frame sampler's fault bits in both engines
-(`noise.sampled_fault_bits`); the transversal channels draw as the
+All three expose the same method set. Block indices are host ints;
+randomness comes from a `torch.Generator` where the reference takes a
+key, and the measurement and reset methods also take explicit collapse
+bits (``rand_bits`` [B, n]). Noiseless, with the same collapse bits, the
+two tableau engines give identical states on every block operation. Under
+noise a block circuit draws the frame sampler's fault bits in every
+engine (`noise.sampled_fault_bits`); the transversal channels draw as the
 reference's engines do (uniforms in the unpacked engine, 32-bit words
-against float32 thresholds in the packed one).
-
-`FrameEngine` (the Pauli-frame engine) is not ported yet.
+against float32 thresholds in the packed one). The frame engine's
+channels draw as the unpacked engine's (`frame.inject1_many` /
+`inject2_many` are `noise.depolarize1_many` / `depolarize2_many`'s
+draws), and it takes and ignores the generator and collapse bits of a
+measurement or reset, so under one executor the two see the same faults.
 """
 
 from __future__ import annotations
@@ -43,15 +48,12 @@ import torch
 from qcss_tpu_torch.decode.montecarlo import _threshold
 from qcss_tpu_torch.ops import gf2_torch
 from qcss_tpu_torch.sim import cuda_measure
+from qcss_tpu_torch.sim import frame as fr
 from qcss_tpu_torch.sim import noise as noise_mod
 from qcss_tpu_torch.sim import tableau as tb
 from qcss_tpu_torch.sim import tableau_packed as tp
 
 WORD = 32
-_NOT_PORTED = ("the frame engine is not ported yet (ROADMAP.md, queue 1, "
-               "item 3 (b): FrameEngine needs frame.run_compiled_noisy_multi, "
-               "the qubits= window and inject1_many/inject2_many)")
-
 
 class UnpackedEngine:
     """Blocks are contiguous [b*n, (b+1)*n) qubit ranges, byte-per-bit."""
@@ -323,15 +325,201 @@ class PackedEngine:
 
 
 class FrameEngine:
-    """The Pauli-frame engine of the reference (`sim.frame` state behind
-    the block interface). Not ported yet: constructing one raises."""
+    """Pauli-frame state (`sim.frame.Frames`) behind the same block-level
+    interface as the tableau engines — the Monte-Carlo fast path for the
+    FTQC executor (Stim's frame-sampler architecture, arXiv:2103.02202
+    §4.2, applied to the whole FT protocol stack).
+
+    The state holds only each sample's Pauli DEVIATION from the noiseless
+    reference run, so gates cost O(1) bits/sample instead of O(rows·words)
+    tableau updates. Two semantic differences from the tableau engines,
+    both handled by the executor (`schedule.MacroExecutor`):
+
+    * `pauli_inject` XORs the logical operator into the frame (intentional
+      Paulis RIDE the deviation; the reference is permanently the
+      Pauli-free program), which is what makes per-sample conditional
+      Paulis exact;
+    * `measure_block` returns outcome DEVIATIONS; the executor XORs in the
+      reference outcomes it records once from a 32-sample noiseless
+      tableau run (`schedule.reference_outcomes`), which also verifies
+      every reference measurement is deterministic — the frame engine's
+      soundness condition.
+
+    Blocks are contiguous [b*n, (b+1)*n) column ranges, addressed as
+    slices. `reset_block` and `measure_block` take the generator and the
+    collapse bits the tableau engines use, and ignore them.
+    """
 
     def __init__(self, n: int, n_blocks: int, noise: noise_mod.NoiseModel):
-        raise NotImplementedError(_NOT_PORTED)
+        self.n = n
+        self.n_blocks = n_blocks
+        self.noise = noise
+        self.stride = n
+
+    def block_qubits(self, b: int) -> list[int]:
+        return [int(b) * self.stride + i for i in range(self.n)]
+
+    def _cols(self, b: int) -> slice:
+        off = int(b) * self.stride
+        return slice(off, off + self.n)
+
+    def zero_state(self, batch: int, device="cuda") -> fr.Frames:
+        return fr.zero_frames(batch, self.n_blocks * self.stride, device)
+
+    def select(self, mask, new, old):
+        m = mask.to(torch.bool)[:, None]
+        return fr.Frames(torch.where(m, new.x, old.x),
+                         torch.where(m, new.z, old.z))
+
+    def reset_block(self, tab, b, generator=None, *, rand_bits=None):
+        # Reset discards the block's deviation (the executor injects
+        # p_reset flips itself, as for the tableau engines).
+        return fr.reset_qubits(tab, self._cols(b))
+
+    def run_block_circuit(self, tab, arrays, b, generator=None):
+        """A block-local circuit on block b with per-gate noise (the
+        per-gate frame engine; `noise.sampled_fault_bits`' draws)."""
+        ops, q0, q1 = arrays
+        off = int(b) * self.stride
+        return fr.run_arrays_noisy(tab, ops, np.asarray(q0) + off,
+                                   np.asarray(q1) + off, self.noise,
+                                   generator)
+
+    def compile_block_circuit(self, arrays) -> fr.CompiledFrameCircuit:
+        """Matrix form of a block-local circuit (host-side, once, on the
+        CPU; `CompiledFrameCircuit.to` moves it)."""
+        ops, q0, q1 = arrays
+        return fr.compile_circuit(ops, q0, q1, self.n)
+
+    def run_compiled(self, tab, comp, b, generator=None):
+        """Compiled-circuit execution at block b — bit-identical to
+        `run_block_circuit` on the same generator state (two products
+        instead of a per-gate loop; the FT-prep hot path)."""
+        return fr.run_compiled_noisy(tab, comp, self.noise, generator,
+                                     qubits=self._cols(b))
+
+    def measure_block(self, tab, b, generator=None, *, rand_bits=None):
+        # Outcome deviations (reference ⊕ deviation = actual); measured
+        # blocks are always reset before reuse in the FT protocols, so the
+        # post-measurement phase scramble needs no modeling.
+        return tab, tab.x[:, self._cols(b)]
+
+    def transversal_cnot(self, tab, b_ctrl, b_tgt, generator=None):
+        sc, st = self._cols(b_ctrl), self._cols(b_tgt)
+        x, z = tab.x.clone(), tab.z.clone()
+        x[:, st] ^= tab.x[:, sc]
+        z[:, sc] ^= tab.z[:, st]
+        tab = fr.Frames(x, z)
+        if self.noise.p_gate2:
+            tab = fr.inject2_many(tab, sc, st, self.noise.rate2, generator)
+        return tab
+
+    @staticmethod
+    def _h(tab, cols):
+        x, z = tab.x.clone(), tab.z.clone()
+        x[:, cols] = tab.z[:, cols]
+        z[:, cols] = tab.x[:, cols]
+        return fr.Frames(x, z)
+
+    def transversal_1q(self, tab, gate: str, b, generator=None):
+        s = self._cols(b)
+        if gate == "H":
+            tab = self._h(tab, s)
+        elif gate == "S":
+            z = tab.z.clone()
+            z[:, s] ^= tab.x[:, s]
+            tab = fr.Frames(tab.x, z)
+        elif gate not in ("X", "Z"):  # X, Z: phase-only on deviations
+            raise ValueError(gate)
+        if self.noise.p_gate1:
+            tab = fr.inject1_many(tab, s, self.noise.rate1, generator)
+        return tab
+
+    def transversal_cz(self, tab, b0, b1, generator=None):
+        sa, sb = self._cols(b0), self._cols(b1)
+        z = tab.z.clone()
+        z[:, sa] ^= tab.x[:, sb]
+        z[:, sb] ^= tab.x[:, sa]
+        tab = fr.Frames(tab.x, z)
+        if self.noise.p_gate2:
+            tab = fr.inject2_many(tab, sa, sb, self.noise.rate2, generator)
+        return tab
+
+    def pauli_inject(self, tab, b, x_row, z_row, mask):
+        # Intentional logical Paulis ride the deviation (the reference run
+        # excludes them — see class docstring).
+        m = mask.to(torch.uint8)[:, None]
+        x_row = torch.as_tensor(x_row, device=tab.x.device).to(torch.uint8)
+        z_row = torch.as_tensor(z_row, device=tab.x.device).to(torch.uint8)
+        return fr.inject_flips(tab, self._cols(b), m * x_row[None, :],
+                               m * z_row[None, :])
+
+    def depolarize_block(self, tab, b, p, generator):
+        return fr.inject1_many(tab, self._cols(b), p, generator)
+
+    def inject_block_flips(self, tab, b, x_flips, z_flips):
+        return fr.inject_flips(tab, self._cols(b), x_flips, z_flips)
+
+    def inject_data_flips(self, tab, x_flips, z_flips):
+        """[B, m, n] flips on the first m blocks at once (the idle
+        channel's injection point; data blocks are the block prefix)."""
+        B, m, n = x_flips.shape
+        return fr.inject_flips(tab, slice(0, m * n), x_flips.reshape(B, -1),
+                               z_flips.reshape(B, -1))
+
+    # -- multi-block primitives (the parallel-EC path; frames-only) -----------
+
+    def blocks_qubits(self, blocks) -> np.ndarray:
+        """Static [m, n] qubit windows for a static block list."""
+        blocks = np.asarray(blocks, np.int64)
+        return blocks[:, None] * self.stride + np.arange(self.n)
+
+    def reset_blocks(self, tab, qubits):
+        return fr.reset_qubits(tab, np.asarray(qubits).reshape(-1))
+
+    def run_compiled_multi(self, tab, comp, windows, generator=None):
+        return fr.run_compiled_noisy_multi(tab, comp, self.noise, generator,
+                                           windows)
+
+    def cnot_qubits(self, tab, qc, qt, generator=None):
+        """Pairwise CNOT on explicit disjoint qubit arrays (+ 2q noise)."""
+        qc = np.asarray(qc).reshape(-1)
+        qt = np.asarray(qt).reshape(-1)
+        c, t = fr._cols(qc, tab.x.device), fr._cols(qt, tab.x.device)
+        x, z = tab.x.clone(), tab.z.clone()
+        x[:, t] ^= tab.x[:, c]
+        z[:, c] ^= tab.z[:, t]
+        tab = fr.Frames(x, z)
+        if self.noise.p_gate2:
+            tab = fr.inject2_many(tab, qc, qt, self.noise.rate2, generator)
+        return tab
+
+    def h_qubits(self, tab, q, generator=None):
+        q = np.asarray(q).reshape(-1)
+        tab = self._h(tab, fr._cols(q, tab.x.device))
+        if self.noise.p_gate1:
+            tab = fr.inject1_many(tab, q, self.noise.rate1, generator)
+        return tab
+
+    def measure_qubits(self, tab, q):
+        """Outcome deviations at explicit qubits (multi-block form of
+        `measure_block`; same deterministic-reference contract)."""
+        return tab, tab.x[:, fr._cols(np.asarray(q).reshape(-1),
+                                      tab.x.device)]
+
+    def select_qubits(self, tab, cols, mask, new, old):
+        """Per-(sample, column) commit: for the static column set `cols`
+        with per-column mask `mask` [B, len(cols)], take `new` where set."""
+        c = fr._cols(np.asarray(cols).reshape(-1), old.x.device)
+        m = mask.to(torch.bool)
+        x, z = old.x.clone(), old.z.clone()
+        x[:, c] = torch.where(m, new.x[:, c], old.x[:, c])
+        z[:, c] = torch.where(m, new.z[:, c], old.z[:, c])
+        return fr.Frames(x, z)
 
 
 def make_engine(kind: str, n: int, n_blocks: int,
-                noise) -> UnpackedEngine | PackedEngine:
+                noise) -> UnpackedEngine | PackedEngine | FrameEngine:
     if kind == "unpacked":
         return UnpackedEngine(n, n_blocks, noise)
     if kind == "packed":

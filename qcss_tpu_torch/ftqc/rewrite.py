@@ -20,10 +20,13 @@ reference's structure exactly:
   (reference: ftqc.py:98-103).
 
 The program runs as the macro-op rows of `ftqc.schedule`, batched over the
-shots on the card (``device="cuda"``, the default) or on the CPU. The
-unrolled engine (``engine='unrolled'``) and the Pauli-frame engine
-(``tableau='frames'``) are not ported yet (ROADMAP.md, queue 1); they
-raise `NotImplementedError` after the reference's validation.
+shots on the card (``device="cuda"``, the default) or on the CPU, on the
+'unpacked', 'packed' or 'frames' engine; for 'frames' the reference
+outcomes are recorded once (`schedule.reference_outcomes`), which refuses a
+program whose measured blocks are not in definite Z̄ eigenstates. The
+unrolled engine (``engine='unrolled'``) and flag EC (``ec_mode='flag'``)
+are not ported yet (ROADMAP.md, queue 1); they raise `NotImplementedError`
+after the reference's validation.
 """
 
 from __future__ import annotations
@@ -51,8 +54,8 @@ from qcss_tpu_torch.errors import (
 )
 from qcss_tpu_torch.sim import noise as noise_mod
 
-_NOT_PORTED = ("is not ported yet (ROADMAP.md, queue 1, item 3: the frame "
-               "engine is (b), the unrolled engine (c))")
+_NOT_PORTED = ("is not ported yet (ROADMAP.md, queue 1: the unrolled "
+               "engine is item 3 (c), flag EC item 4)")
 
 
 class EncodedProgram:
@@ -110,12 +113,12 @@ class EncodedProgram:
         self.qubit_map = {q: i for i, q in enumerate(raw.qubits())}
         self.n_logical = len(self.qubit_map)
         self.memory = dict(raw.memory)
-        self._scheduled = None  # (macro, executor), built once
+        self._scheduled = None  # (macro, executor, ref_outs), built once
         self._validate()
         if engine == "unrolled":
             raise NotImplementedError(f"engine='unrolled' {_NOT_PORTED}")
-        if tableau == "frames":
-            raise NotImplementedError(f"tableau='frames' {_NOT_PORTED}")
+        if ec_mode == "flag":
+            raise NotImplementedError(f"ec_mode='flag' {_NOT_PORTED}")
         self.device = _cuda.resolve_device(device)
 
     def _validate(self):
@@ -176,7 +179,8 @@ class EncodedProgram:
     # -- execution ---------------------------------------------------------------
 
     def _prepare_scheduled(self):
-        """Lower once and build the executor (host-side work)."""
+        """Lower once, build the executor and (for the 'frames' engine)
+        record the reference measurement outcomes."""
         if self._scheduled is None:
             from qcss_tpu_torch.ftqc import schedule
 
@@ -189,7 +193,12 @@ class EncodedProgram:
                 ec_mode=self.ec_mode,
                 device=self.device,
             )
-            self._scheduled = (macro, executor)
+            ref_outs = (
+                schedule.reference_outcomes(macro, self.code,
+                                            device=self.device)
+                if self.tableau == "frames" else None
+            )
+            self._scheduled = (macro, executor, ref_outs)
         return self._scheduled
 
     def run(self, batch: int, seed: int = 0, *,
@@ -204,8 +213,9 @@ class EncodedProgram:
         samples where some FT preparation exhausted ``max_prep_attempts``
         without passing verification; callers can discard those shots or
         bound the unverified fraction."""
-        macro, executor = self._prepare_scheduled()
-        st = executor.execute(macro, batch, seed=seed, generator=generator)
+        macro, executor, ref_outs = self._prepare_scheduled()
+        st = executor.execute(macro, batch, seed=seed, generator=generator,
+                              ref_outs=ref_outs)
         memory = st.memory.cpu().numpy()
         out = {
             name: memory[:, off:off + size]
@@ -230,9 +240,12 @@ def rewrite_program(raw: Program, code, *,
 
     engine: 'scheduled' (macro-op rows; `ftqc.schedule`). 'unrolled' is
     validated as in the reference but not ported yet.
-    tableau: 'unpacked' (byte-per-bit, best for small codes) or 'packed'
+    tableau: 'unpacked' (byte-per-bit, best for small codes), 'packed'
     (32-bit words, word-aligned blocks, block measurements on K9 on the
-    card; best for surface-code-scale blocks). 'frames' is not ported yet.
+    card; best for surface-code-scale blocks) or 'frames' (Pauli frames
+    plus reference outcomes recorded once: the Monte-Carlo fast path,
+    bit-identical to 'unpacked' on one seed; every measured block must be
+    in a definite Z̄ eigenstate, and conditional gates must be Paulis).
     ancillas: 'shared' (one EC/measure ancilla pair for all blocks — the
     reference's QVM-ceiling compromise, reference: ftqc.py:153-160) or
     'dedicated' (an ancilla pair per logical block; statistically identical
@@ -241,11 +254,13 @@ def rewrite_program(raw: Program, code, *,
     reference's scheme) or 2 (Shor-style repeated extraction: a correction
     commits only when both syndromes agree).
     ec_schedule: 'serial' (one block's Steane round at a time, the
-    reference's shared-scratch structure — ftqc.py:153-171); 'parallel'
-    needs the frame engine.
+    reference's shared-scratch structure — ftqc.py:153-171) or 'parallel'
+    (every block's round simultaneously; requires ancillas='dedicated' and
+    tableau='frames'; under idle noise this removes the n_logical-fold
+    idle exposure the serial schedule charges to waiting blocks).
     ec_mode: 'steane' (encoded-ancilla transversal extraction, the
-    reference's protocol — css_code.py:436-470); 'flag' needs the frame
-    engine.
+    reference's protocol — css_code.py:436-470); 'flag' is validated as
+    in the reference but not ported yet.
     device: where the shots run ("cuda" by default; "cpu" runs the plain
     PyTorch versions).
     """

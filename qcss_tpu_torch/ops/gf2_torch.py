@@ -14,6 +14,8 @@ accepts either, and reads only their low 32 bits.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -43,12 +45,18 @@ def syndromes_dense(errors: torch.Tensor,
     return mod2_matmul(errors, parity_check.T)
 
 
+@functools.lru_cache(maxsize=256)
+def _place_values(r: int, device: str) -> torch.Tensor:
+    """[2^(r-1), ..., 2, 1] as int64 on ``device``, built once per (r,
+    device): copying a host list to the card waits for the queued work."""
+    return torch.tensor([1 << (r - 1 - i) for i in range(r)],
+                        dtype=torch.int64, device=device)
+
+
 def bits_to_index(bits: torch.Tensor) -> torch.Tensor:
     """Big-endian bit vector(s) -> integer index: bits [..., r] -> [...]
     int32, the first bit the most significant."""
-    r = bits.shape[-1]
-    weights = torch.tensor([1 << (r - 1 - i) for i in range(r)],
-                           dtype=torch.int64, device=bits.device)
+    weights = _place_values(bits.shape[-1], str(bits.device))
     return (bits.to(torch.int64) * weights).sum(dim=-1).to(torch.int32)
 
 

@@ -20,12 +20,19 @@ does the tableau's `noise.run_arrays_noisy`. So the engines are
 bit-identical on one generator state, and a test can hand any of them
 the JAX package's fault bits.
 
+The fused channels `inject1_many` / `inject2_many` draw from a generator
+exactly as the tableau's `noise.depolarize1_many` / `depolarize2_many` on
+the same qubits (the same tensors, in the same order), so the frame XOR
+is the Pauli the tableau engine applies on one generator state.
+
 The per-gate functions clone the frame once and then update the clone in
-place, column by column; their inputs are never modified.
+place, column by column; their inputs are never modified. Qubit sets are
+index lists (host ints, numpy or tensors) or a `slice` of columns.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -60,6 +67,26 @@ def zero_frames(batch: int, n: int, device="cuda") -> Frames:
     z = torch.zeros((batch, n), dtype=torch.uint8,
                     device=resolve_device(device))
     return Frames(z, z.clone())
+
+
+@functools.lru_cache(maxsize=4096)
+def _index_on(qubits: tuple, device: str) -> torch.Tensor:
+    """An int64 index tensor, built once per (qubits, device): copying a
+    host list to the card waits for the work queued before it, and the FT
+    executor indexes the same few qubit sets over and over."""
+    return torch.tensor(qubits, dtype=torch.int64, device=device)
+
+
+def _cols(qubits, device):
+    """A column index for ``[:, cols]``: a slice as it is, a tensor moved
+    to ``device``, host indices as a cached int64 tensor there."""
+    if isinstance(qubits, slice):
+        return qubits
+    if isinstance(qubits, torch.Tensor):
+        return qubits.to(device)
+    q = _host_ints(qubits)
+    return _index_on(tuple(q.reshape(-1).tolist()),
+                     str(torch.device(device))).reshape(q.shape)
 
 
 def _host_ints(a) -> np.ndarray:
@@ -204,32 +231,115 @@ def maybe_compile(arrays, n: int,
     return compile_circuit(*arrays, n)
 
 
-def run_compiled_noisy(f: Frames, comp: CompiledFrameCircuit,
-                       model: noise_mod.NoiseModel,
-                       generator: torch.Generator | None = None, *,
-                       fault_bits: torch.Tensor | None = None) -> Frames:
-    """Execute a compiled circuit spanning the whole frame:
-    out = in·M ⊕ faults·S. Bit-identical to `run_arrays_noisy` on the
-    same fault bits or generator state."""
-    v = torch.cat([f.x, f.z], dim=-1)  # [B, 2n]
+def _noisy_product(v, comp: CompiledFrameCircuit, model, generator,
+                   fault_bits, rows: int):
+    """v·M ⊕ faults·S for v [rows, 2n]; the fault bits are ``fault_bits``
+    or ``rows`` samples drawn from ``generator``."""
     out = mod2_matmul(v, comp.m)
     if (model.p_gate1 or model.p_gate2) and comp.s is not None:
         bits = fault_bits
         if bits is None:
             bits = noise_mod.sampled_fault_bits(comp.ops, model, generator,
-                                                f.batch)
+                                                rows)
         out = out ^ mod2_matmul(bits, comp.s)
+    return out
+
+
+def run_compiled_noisy(f: Frames, comp: CompiledFrameCircuit,
+                       model: noise_mod.NoiseModel,
+                       generator: torch.Generator | None = None, *,
+                       fault_bits: torch.Tensor | None = None,
+                       qubits=None) -> Frames:
+    """Execute a compiled circuit: out = in·M ⊕ faults·S. ``qubits``
+    ([n] indices or a slice) selects the circuit's qubit window inside
+    wider frames (None: the circuit spans the whole frame). Bit-identical
+    to `run_arrays_noisy` on the same fault bits or generator state, with
+    the window's offsets added to its qubits."""
     n = comp.n
-    return Frames(out[:, :n].contiguous(), out[:, n:].contiguous())
+    if qubits is None:
+        v = torch.cat([f.x, f.z], dim=-1)  # [B, 2n]
+        out = _noisy_product(v, comp, model, generator, fault_bits, f.batch)
+        return Frames(out[:, :n].contiguous(), out[:, n:].contiguous())
+    q = _cols(qubits, f.x.device)
+    v = torch.cat([f.x[:, q], f.z[:, q]], dim=-1)
+    out = _noisy_product(v, comp, model, generator, fault_bits, f.batch)
+    x, z = f.x.clone(), f.z.clone()
+    x[:, q] = out[:, :n]
+    z[:, q] = out[:, n:]
+    return Frames(x, z)
+
+
+def run_compiled_noisy_multi(f: Frames, comp: CompiledFrameCircuit,
+                             model: noise_mod.NoiseModel,
+                             generator: torch.Generator | None, windows, *,
+                             fault_bits: torch.Tensor | None = None
+                             ) -> Frames:
+    """Execute the same compiled block-local circuit on m qubit windows
+    at once — the parallel-EC primitive (every block's ancilla prep in one
+    pair of products). ``windows``: [m, n] qubit indices. Noise is drawn
+    independently per window: one flat [B*m] sample a gate group, row
+    b*m + j for shot b and window j (``fault_bits``: [B*m, 4G])."""
+    w = _cols(windows, f.x.device)
+    m, n = w.shape
+    B = f.batch
+    v = torch.cat([f.x[:, w], f.z[:, w]], dim=-1)     # [B, m, 2n]
+    out = _noisy_product(v.reshape(B * m, 2 * n), comp, model, generator,
+                         fault_bits, B * m).reshape(B, m, 2 * n)
+    x, z = f.x.clone(), f.z.clone()
+    x[:, w] = out[..., :n]
+    z[:, w] = out[..., n:]
+    return Frames(x, z)
 
 
 def inject_flips(f: Frames, qubits, x_flips, z_flips) -> Frames:
     """XOR explicit [B, m] flips into the frame at the given qubits."""
-    q = torch.as_tensor(qubits, device=f.x.device)
+    q = _cols(qubits, f.x.device)
     x, z = f.x.clone(), f.z.clone()
     x[:, q] ^= torch.as_tensor(x_flips, device=x.device).to(torch.uint8)
     z[:, q] ^= torch.as_tensor(z_flips, device=z.device).to(torch.uint8)
     return Frames(x, z)
+
+
+# -- fused noise channels (the tableau channels' draws) ---------------------------
+
+
+def _num_qubits(qubits, n: int) -> int:
+    if isinstance(qubits, slice):
+        return len(range(*qubits.indices(n)))
+    if isinstance(qubits, torch.Tensor):
+        return qubits.numel()
+    return len(_host_ints(qubits))
+
+
+def _qubit_list(qubits, n: int) -> np.ndarray:
+    if isinstance(qubits, slice):
+        return np.arange(*qubits.indices(n))
+    return _host_ints(qubits)
+
+
+def inject1_many(f: Frames, qubits, p,
+                 generator: torch.Generator) -> Frames:
+    """IID single-qubit Pauli channel on a set of qubits — the frame
+    counterpart of `noise.depolarize1_many` (one [B, m] uniform draw,
+    the same thresholds). p: scalar (uniform) or (px, py, pz) (biased)."""
+    m = _num_qubits(qubits, f.n)
+    u = torch.rand((f.batch, m), generator=generator, device=generator.device)
+    x_hit, z_hit = noise_mod._hits_1q(u, p)
+    return inject_flips(f, qubits, x_hit, z_hit)
+
+
+def inject2_many(f: Frames, controls, targets, p,
+                 generator: torch.Generator) -> Frames:
+    """IID two-qubit noise on m disjoint pairs — the frame counterpart of
+    `noise.depolarize2_many`: a [B, m] hit uniform and a pattern in
+    [1, 16) for scalar p; for p=(px, py, pz) the biased 1q channel over
+    the controls, then the targets."""
+    c, q = _qubit_list(controls, f.n), _qubit_list(targets, f.n)
+    if isinstance(p, tuple):
+        return inject1_many(f, np.concatenate([c, q]), p, generator)
+    x1, z1, x2, z2 = noise_mod._hits_2q(generator, (f.batch, len(c)), p)
+    return inject_flips(f, np.concatenate([c, q]), torch.cat([x1, x2], 1),
+                        torch.cat([z1, z2], 1))
 
 
 # -- measurement / reset ---------------------------------------------------------
@@ -241,8 +351,7 @@ def measure_deviations(f: Frames, qubits, generator=None,
     deterministic: returns (frames, outcome deviations [B, m]) — the
     actual outcome is reference ⊕ deviation. Valid only if the measured
     qubits are reset before their next use."""
-    q = torch.as_tensor(qubits, device=f.x.device)
-    outs = f.x[:, q]
+    outs = f.x[:, _cols(qubits, f.x.device)]
     if p_meas:
         outs = noise_mod.flip_bits(outs, p_meas, generator)
     return f, outs
@@ -252,10 +361,11 @@ def reset_qubits(f: Frames, qubits, generator=None,
                  p_reset: float = 0.0) -> Frames:
     """Reset to |0>: the deviation on a reset qubit is the reset-error X
     flip (probability p_reset), independent of its prior frame."""
-    q = torch.as_tensor(qubits, device=f.x.device)
+    q = _cols(qubits, f.x.device)
     x, z = f.x.clone(), f.z.clone()
     if p_reset:
-        x[:, q] = (torch.rand((f.batch, q.shape[0]), generator=generator,
+        m = _num_qubits(qubits, f.n)
+        x[:, q] = (torch.rand((f.batch, m), generator=generator,
                               device=x.device) < p_reset).to(torch.uint8)
     else:
         x[:, q] = 0

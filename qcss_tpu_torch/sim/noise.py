@@ -16,6 +16,7 @@ inject their flips through `apply_pauli_frame`. The traced-rate surface
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
@@ -166,6 +167,19 @@ def flip_bits(bits: torch.Tensor, p, generator: torch.Generator) -> torch.Tensor
     return bits ^ (u < p).to(bits.dtype)
 
 
+@functools.lru_cache(maxsize=1024)
+def _fault_columns(ops: tuple, device: str):
+    """(first fault column of each 1q gate, of each 2q gate) as int64
+    tensors on ``device`` (None where there is no such gate), built once
+    per circuit: a host list copied to the card waits for the queued
+    work."""
+    def cols(gates):
+        return (torch.tensor([4 * g for g in gates], dtype=torch.int64,
+                             device=device) if gates else None)
+    return (cols([g for g, op in enumerate(ops) if op < _TWO_Q_START]),
+            cols([g for g, op in enumerate(ops) if op >= _TWO_Q_START]))
+
+
 def sampled_fault_bits(ops, model: NoiseModel, generator: torch.Generator,
                        batch: int) -> torch.Tensor:
     """[B, 4G] uint8 fault bits, four per gate: (x_a, z_a, x_b, z_b).
@@ -176,39 +190,36 @@ def sampled_fault_bits(ops, model: NoiseModel, generator: torch.Generator,
     draws (sim/frame.py `_inject1`/`_inject2`); the numbers are torch's,
     drawn on the generator's device."""
     device = generator.device
-    ops = tb.host_qubits(ops)
+    ops = tuple(tb.host_qubits(ops))
     G = len(ops)
     out = torch.zeros((batch, 4 * G), dtype=torch.uint8, device=device)
-    idx_1q = [g for g, op in enumerate(ops) if op < _TWO_Q_START]
-    idx_2q = [g for g, op in enumerate(ops) if op >= _TWO_Q_START]
-    if idx_1q:
+    base1, base2 = _fault_columns(ops, str(device))
+    if base1 is not None:
         x_hi, z_lo, z_hi = _thresholds_1q(model.rate1)
-        u = torch.rand((len(idx_1q), batch), generator=generator,
+        u = torch.rand((len(base1), batch), generator=generator,
                        device=device)
-        base = 4 * torch.as_tensor(idx_1q, device=device)
-        out[:, base] = (u < x_hi).T.to(torch.uint8)
-        out[:, base + 1] = ((u >= z_lo) & (u < z_hi)).T.to(torch.uint8)
-    if idx_2q:
+        out[:, base1] = (u < x_hi).T.to(torch.uint8)
+        out[:, base1 + 1] = ((u >= z_lo) & (u < z_hi)).T.to(torch.uint8)
+    if base2 is not None:
         rate2 = model.rate2
-        base = 4 * torch.as_tensor(idx_2q, device=device)
         if isinstance(rate2, tuple):
             x_hi, z_lo, z_hi = _thresholds_1q(rate2)
-            u = torch.rand((len(idx_2q), batch, 2), generator=generator,
+            u = torch.rand((len(base2), batch, 2), generator=generator,
                            device=device)
             x_hit = (u < x_hi).to(torch.uint8)
             z_hit = ((u >= z_lo) & (u < z_hi)).to(torch.uint8)
-            out[:, base] = x_hit[:, :, 0].T
-            out[:, base + 1] = z_hit[:, :, 0].T
-            out[:, base + 2] = x_hit[:, :, 1].T
-            out[:, base + 3] = z_hit[:, :, 1].T
+            out[:, base2] = x_hit[:, :, 0].T
+            out[:, base2 + 1] = z_hit[:, :, 0].T
+            out[:, base2 + 2] = x_hit[:, :, 1].T
+            out[:, base2 + 3] = z_hit[:, :, 1].T
         else:
-            hit = (torch.rand((len(idx_2q), batch), generator=generator,
+            hit = (torch.rand((len(base2), batch), generator=generator,
                               device=device) < rate2).to(torch.uint8)
-            pat = torch.randint(1, 16, (len(idx_2q), batch),
+            pat = torch.randint(1, 16, (len(base2), batch),
                                 generator=generator, device=device)
             for bit in range(4):
-                out[:, base + bit] = (((pat >> bit) & 1).to(torch.uint8)
-                                      * hit).T
+                out[:, base2 + bit] = (((pat >> bit) & 1).to(torch.uint8)
+                                       * hit).T
     return out
 
 

@@ -9,6 +9,7 @@ plain pieces and the same state is given to the JAX kernel.
 
 from functools import lru_cache
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -100,7 +101,8 @@ def _staged_walk(kind):
 @pytest.mark.parametrize("kind", KINDS)
 def test_prop_plain_matches_pallas_kernel(kind):
     jdg = _case(kind)[0]
-    prop = jpl.make_prop_kernel(*_kernel_args(jdg), interpret=True)
+    # jitted once, so the walk's calls share one trace
+    prop = jax.jit(jpl.make_prop_kernel(*_kernel_args(jdg), interpret=True))
     props, _ = _staged_walk(kind)
     adopted_somewhere = False
     for packed, satm, satb, out in props:
@@ -115,7 +117,7 @@ def test_prop_plain_matches_pallas_kernel(kind):
 def test_act_plain_matches_pallas_kernel(kind):
     jdg = _case(kind)[0]
     st, _, _, V, T = _kernel_args(jdg)
-    actk = jpl.make_act_kernel(st, V, T, interpret=True)
+    actk = jax.jit(jpl.make_act_kernel(st, V, T, interpret=True))
     _, acts = _staged_walk(kind)
     spread_somewhere = False
     for seed, passes, out in acts:
@@ -130,7 +132,7 @@ def test_act_plain_matches_pallas_kernel(kind):
 @pytest.mark.parametrize("kind", KINDS)
 def test_round_plain_matches_pallas_kernel(kind):
     jdg, tdg, dets = _case(kind)
-    step = jpl.make_round_kernel(*_kernel_args(jdg), interpret=True)
+    step = jax.jit(jpl.make_round_kernel(*_kernel_args(jdg), interpret=True))
     defect = tdu.stencil_defect(tdg, torch.as_tensor(dets))
     O = len(tdg.stencil.deltas)
     KB = tdg.stencil.bmask.shape[0]

@@ -209,7 +209,11 @@ def test_noisy_transversal_channels_are_sound():
 
 
 def test_frame_engine_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teng.make_engine("frames", N, N_BLOCKS, TNoise())
+    # The frame engine is ported (tests/test_torch_ftqc_frames.py holds it
+    # against the reference's); `make_engine` builds it as the reference's
+    # does, and still refuses an unknown kind.
+    eng = teng.make_engine("frames", N, N_BLOCKS, TNoise())
+    assert isinstance(eng, teng.FrameEngine)
+    assert (eng.n, eng.n_blocks, eng.stride) == (N, N_BLOCKS, N)
     with pytest.raises(ValueError):
         teng.make_engine("nope", N, N_BLOCKS, TNoise())

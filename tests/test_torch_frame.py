@@ -87,13 +87,16 @@ def test_noisy_frames_bit_identical_given_fault_bits(basis, noise):
     fj = jfr.inject_flips(jfr.zero_frames(B, n), jnp.arange(n), x0, z0)
     ft = tfr.inject_flips(tfr.zero_frames(B, n, "cpu"), np.arange(n),
                           torch.as_tensor(x0), torch.as_tensor(z0))
-    key = jax.random.key(3)
     cj = jfr.compile_circuit(ops, q0, q1, n)
-    bits = torch.from_numpy(
-        np.array(jfr._sampled_fault_bits(cj, mj, key, B)))
+
+    def reference(key, fj):  # one jit: cheaper than eager op by op
+        return (jfr._sampled_fault_bits(cj, mj, key, B),
+                jfr.run_arrays_noisy(fj, ops, q0, q1, mj, key),
+                jfr.run_compiled_noisy(fj, cj, mj, key))
+
+    bits, ref, ref_c = jax.jit(reference)(jax.random.key(3), fj)
+    bits = torch.from_numpy(np.array(bits))
     assert bits.any()
-    ref = jfr.run_arrays_noisy(fj, ops, q0, q1, mj, key)
-    ref_c = jfr.run_compiled_noisy(fj, cj, mj, key)
     ct = tfr.compile_circuit(ops, q0, q1, n)
     for out in (tfr.run_arrays_noisy(ft, ops, q0, q1, mt, fault_bits=bits),
                 tfr.run_compiled_noisy(ft, ct, mt, fault_bits=bits)):

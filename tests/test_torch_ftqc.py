@@ -13,8 +13,8 @@ The reference's executor is never run here: each of its compiles costs
 * the reference's validation: the same exception types and messages for
   every refused argument, and `NotImplementedError` naming ROADMAP.md's
   queue 1 for the combinations the reference accepts and the port has
-  not ported (the frame engine, the unrolled engine, flag and parallel
-  EC);
+  not ported (the unrolled engine and flag EC; the frame engine and
+  parallel EC are held in tests/test_torch_ftqc_frames.py);
 * the reference's failure and preparation-failure counts of the noisy
   Steane X program (two-sample 99.9% tests; the samplers differ).
 
@@ -179,7 +179,7 @@ def _outcome(fn):
 
 
 def _unported(kw) -> bool:
-    return kw.get("engine") == "unrolled" or kw.get("tableau") == "frames"
+    return kw.get("engine") == "unrolled" or kw.get("ec_mode") == "flag"
 
 
 ENCODE_GRID = [
@@ -251,9 +251,7 @@ def test_macro_executor_validation():
         got = _outcome(lambda: tsched.MacroExecutor(tcode, 1, device="cpu",
                                                     **kw))
         ref = kw.get("reference_mode", False)
-        unported = (kw.get("tableau_engine") == "frames"
-                    or (kw.get("ec_mode") == "flag" and not ref)
-                    or (kw.get("ec_schedule") == "parallel" and not ref))
+        unported = kw.get("ec_mode") == "flag" and not ref
         if want is None and unported:
             assert got[0] == "NotImplementedError", (kw, got)
             assert "ROADMAP.md, queue 1" in got[1]

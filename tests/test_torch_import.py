@@ -31,7 +31,9 @@ PORT_MODULES = [
     "qcss_tpu_torch.benchmarks.belief_bench",
     "qcss_tpu_torch.benchmarks.bp_bench",
     "qcss_tpu_torch.benchmarks.device_uf_bench",
+    "qcss_tpu_torch.benchmarks.ftqc_bench",
     "qcss_tpu_torch.benchmarks.ftqc_programs",
+    "qcss_tpu_torch.benchmarks.idle_bench",
     "qcss_tpu_torch.benchmarks.profiling",
     "qcss_tpu_torch.benchmarks.sideinfo_bench",
     "qcss_tpu_torch.benchmarks.surgery_bench",

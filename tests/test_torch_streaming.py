@@ -125,10 +125,13 @@ def test_mid_window_tables_equal(d, kind):
 
 def _jax_decoder(h, lz, **kw):
     """The JAX decoder with its mid-window decode on the Mosaic full
-    kernel, run in interpret mode."""
+    kernel, run in interpret mode (jitted once, as the decoder's own
+    `_mid_fn` is, so the windows share one trace)."""
+    import jax
+
     dec = jds.DeviceStreamingDecoder(h, lz, **kw)
-    dec._mid_fn = partial(decode_stencil_pallas_full, dec._mid,
-                          interpret=True)
+    dec._mid_fn = jax.jit(partial(decode_stencil_pallas_full, dec._mid,
+                                  interpret=True))
     return dec
 
 
@@ -222,8 +225,10 @@ def test_sampled_stream_matches_jax_statistically():
 
     h, lz = _code(3)
     B, R = 4096, 10
-    dj, pj = jst.sample_phenomenological_stream(jax.random.key(1), 0.03,
-                                                0.03, B, R, h, lz)
+    dj, pj = jax.jit(  # one jit: cheaper than eager op by op
+        lambda key: jst.sample_phenomenological_stream(key, 0.03, 0.03, B,
+                                                       R, h, lz))(
+        jax.random.key(1))
     gen = torch.Generator().manual_seed(1)
     dt, pt = tst.sample_phenomenological_stream(gen, 0.03, 0.03, B, R, h, lz)
     assert dt.shape == tuple(dj.shape) and dt.dtype == torch.uint8
