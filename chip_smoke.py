@@ -208,6 +208,39 @@ the stencil kernel:
    beside the card's name and power limit; (e) K9's launches over the
    path (0), its seconds by part, peak memory, and frames' shots/s beside
    path 12's unpacked and packed rows; one JSON line `ftqc_frames`;
+   main path 14, the rest of the FT transpiler (no kernel of its own; K9
+   in the 'packed' break-even runs): (a) the unrolled engine
+   (`rewrite_program(..., engine='unrolled')` over `FTProtocols`): the
+   programs of (12 a) at B=1024, each at its gold with `__prep_fail__` 0
+   or refused, the refused set equal to the JAX package's
+   (`ftqc_programs.UNROLLED_REFUSED`); unrolled against scheduled bit for
+   bit (registers, prep_fail, frames, the split count) at B=16384 on the X
+   program and superdense coding under p_meas = p_reset = 0.01 and under
+   p_gate1 = p_gate2 = 3e-3, the shots carrying a frame counted; under
+   p_gate2 = p_idle = 3e-4 (the draws shift by design) by a two-sample
+   99.9% test; on the feedback program bit for bit on the shots whose
+   condition is 1 and by a two-sample test on the rest; the unrolled and
+   scheduled engines' shots/s on the Steane X program (B=16384, 2 warm
+   and 3 timed calls); (b) flag EC on 'frames' (`ec_mode='flag'`): the
+   noiseless two-block program (test_flags.py:78's; X then CNOT where the
+   code has no transversal H) at B=1024 on Steane, rotated surface d=3
+   and triangular colour 3, exact; every weight-1 X and Z data error
+   before one flag round in the frame, exactly where the code's LUT has
+   one weight-1 error a syndrome, stabilizer-equivalent everywhere; the
+   Steane X program at p = 1e-3 and 3e-3 (every channel), B=65536 each,
+   failures(3e-3) > 4.5 x failures(1e-3), each count against the JAX
+   package's by a two-sample 99.9% test; (c) `benchmarks/flag_bench.py`
+   at its defaults (Steane, p = 1e-3 and 3e-4, 2^15 shots in chunks of
+   2^13, both EC modes), flag EC's failures within two-sample 99.9% of
+   Steane EC's or below them; (d) `benchmarks/fidelity.py` at its
+   defaults and its noiseless encoded rate (0), `breakeven_probe.py`
+   (`--shots 16384`, 'packed') and `breakeven.py` (`--ps 1e-3 3e-4
+   --min-shots 65536 --chunk 32768`) on 'packed' and on 'frames', every
+   rate with its Wilson interval, shots/s beside the card's name and power
+   limit; (e) K9's launches by part (one a packed block measurement or
+   reset in (d), 0 elsewhere), seconds by part and peak memory, then K9
+   against its plain version bit for bit and timed on the last state
+   breakeven 'packed' measured; one JSON line `ftqc_rest`;
 9. times each kernel, its plain version and (K6, K7) the dense matmul
    form at the main paths' shapes, beside each kernel's bound, checking
    each timed output against the plain version's; K9 and K2 through
@@ -381,6 +414,32 @@ FRAMES_PAR_NOISE = (3e-4, 3e-4)       # p_gate2, p_idle
 # ec_schedule=s).run(4096, key=jax.random.key(2))` on the CPU (JAX 0.9.0)
 FRAMES_PAR_REF = (143, 334, 4096)
 FRAMES_SCALING = (1, 2, 4)            # ftqc_bench --ec-scaling widths
+# path 14, the rest of the FT transpiler: the unrolled engine, flag EC and
+# the FT benches
+ROLL_GOLD_BATCH = 1024
+ROLL_EQ_BATCH = 16384                 # unrolled == scheduled, one seed
+ROLL_EQ_RUNS = (
+    ("readout, reset", {"p_meas": 0.01, "p_reset": 0.01}),
+    ("gate", {"p_gate1": 3e-3, "p_gate2": 3e-3}),
+)
+ROLL_EQ_PROGRAMS = ("x", "superdense11")
+ROLL_IDLE = {"p_gate2": 3e-4, "p_idle": 3e-4}  # idle_bench's defaults
+ROLL_BENCH_BATCH = 16384              # unrolled against scheduled shots/s
+FLAG_GOLD_BATCH = 1024
+FLAG_CODES = ("steane", "surface3", "color3")
+FLAG_RATE_BATCH = 1 << 16
+# The JAX package's flag-EC Steane X program under NoiseModel(p_gate1=p,
+# p_gate2=p, p_meas=p, p_reset=p), 'frames': 117 failures (ro != 1) of
+# 65536 at p = 1e-3 and 957 at 3e-3, from `rewrite_program(x, steane(),
+# noise=noise, tableau="frames", ec_mode="flag").run(65536,
+# key=jax.random.key(2))` on the CPU (JAX 0.9.0), the reference's executor
+# not being run on the card
+FLAG_RATE_REF = {1e-3: (117, 1 << 16), 3e-3: (957, 1 << 16)}
+FLAG_BENCH_ARGS = ()                  # flag_bench.py at its defaults
+FIDELITY_ARGS = ()                    # fidelity.py at its defaults
+BREAKEVEN_PROBE_ARGS = ("--shots", "16384", "--tableau", "packed")
+BREAKEVEN_ARGS = ("--ps", "1e-3", "3e-4", "--min-shots", "65536",
+                  "--chunk", "32768")
 Z999 = 3.2905
 
 
@@ -2301,6 +2360,372 @@ def path13(dev, smi, ftqc12):
     return out
 
 
+def path14(dev, int_ops_per_s, smi):
+    """Main path 14, the rest of the FT transpiler: (a) the unrolled
+    engine (`rewrite_program(..., engine='unrolled')`, `FTProtocols`):
+    golds, refusals against the JAX package's set, unrolled against
+    scheduled bit for bit, under idle noise and on an `if_then` program,
+    and its shots/s beside the scheduled engine's; (b) flag EC on
+    'frames' (`ec_mode='flag'`): noiseless golds on three codes, weight-1
+    errors into the frame, the quadratic scaling and the JAX package's
+    counts; (c) `flag_bench.py` at its defaults; (d) `fidelity.py`,
+    `breakeven_probe.py` and `breakeven.py`, whose 'packed' runs launch
+    K9; (e) K9's launches by part, seconds by part, peak memory, then K9
+    against its plain version on a state (d) measures (module docstring).
+    Returns the `ftqc_rest` JSON object and K9's path-14 entry."""
+    import numpy as np
+    import torch
+
+    from qcss_tpu_torch.benchmarks import (
+        breakeven,
+        breakeven_probe,
+        fidelity,
+        flag_bench,
+    )
+    from qcss_tpu_torch.benchmarks import ftqc_programs as fp
+    from qcss_tpu_torch.benchmarks import measure_sparse_bench as msb
+    from qcss_tpu_torch.circuits import Program
+    from qcss_tpu_torch.codes import families
+    from qcss_tpu_torch.errors import UnsupportedProgramError
+    from qcss_tpu_torch.ftqc import engines, rewrite_program, schedule
+    from qcss_tpu_torch.ops import gf2
+    from qcss_tpu_torch.sim import cuda_measure
+    from qcss_tpu_torch.sim import tableau as tb
+    from qcss_tpu_torch.sim.noise import NoiseModel
+
+    out = {"card": smi}
+    seconds, k9 = {}, {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    cuda_measure.launches = 0
+    t_path = time.perf_counter()
+
+    def part_done(name, t_part):
+        seconds[name] = time.perf_counter() - t_part
+        k9[name] = cuda_measure.launches - sum(k9.values())
+
+    # -- (a) the unrolled engine: golds and refusals
+    t_part = time.perf_counter()
+    refused, by_program = {}, {}
+    for name, spec in fp.PROGRAMS.items():
+        t1 = time.perf_counter()
+        prog, code = fp.build(name)
+        try:
+            enc = rewrite_program(prog, code, engine="unrolled", device=dev,
+                                  **spec.options)
+        except (ValueError, UnsupportedProgramError) as exc:
+            refused[name] = f"{type(exc).__name__}: {exc}"
+            continue
+        res = enc.run(ROLL_GOLD_BATCH, 0)
+        prep_fail = int(res["__prep_fail__"].sum())
+        if not spec.gold(res) or prep_fail:
+            raise RuntimeError(
+                f"{name} ({spec.source}) unrolled: outcomes "
+                f"{np.unique(res['ro'], axis=0)} miss the gold, or "
+                f"{prep_fail} prep_fail shots")
+        by_program[name] = round(time.perf_counter() - t1, 3)
+    want = fp.UNROLLED_REFUSED
+    log(f"path 14 (a) unrolled: {len(by_program)} programs at "
+        f"B={ROLL_GOLD_BATCH}, every outcome its gold, prep_fail 0 (by "
+        f"program {by_program}); refused here {sorted(refused)}, by the JAX "
+        f"package {sorted(want)}")
+    if sorted(refused) != sorted(want) or any(
+            want[k] not in refused[k] for k in want):
+        raise RuntimeError(f"the unrolled engine refuses {refused}; the JAX "
+                           f"package refuses {want}")
+    out["golds"] = {"programs": sorted(by_program), "refused": refused,
+                    "s_by_program": by_program}
+
+    # unrolled against scheduled on one seed
+    def both(name, rates, batch, seed):
+        prog, code = fp.build(name)
+        noise = NoiseModel(**rates)
+        enc = rewrite_program(prog, code, noise=noise, engine="unrolled",
+                              device=dev)
+        mem, su = enc._execute(batch, seed, None)
+        macro = schedule.lower(prog, code)
+        ex = schedule.MacroExecutor(code, macro.n_logical, noise, device=dev)
+        ss = ex.execute(macro, batch, seed=seed)
+        regs = {k: ss.memory[:, off:off + size]
+                for k, (off, size) in macro.memory_layout.items()}
+        return mem, su, regs, ss, (enc.protocols._splits, ex._splits)
+
+    def failures(regs, name):
+        want_bits = {"x": [1], "superdense11": [1, 1]}[name]
+        return int((regs["ro"] != torch.tensor(want_bits, device=dev))
+                   .any(dim=1).sum())
+
+    out["equal"] = {}
+    for label, rates in ROLL_EQ_RUNS:
+        for name in ROLL_EQ_PROGRAMS:
+            t1 = time.perf_counter()
+            mem, su, regs, ss, splits = both(name, rates, ROLL_EQ_BATCH, 11)
+            fields = {"registers": all(torch.equal(mem[k], regs[k])
+                                       for k in regs),
+                      **{f: torch.equal(getattr(su, f), getattr(ss, f))
+                         for f in ("prep_fail", "x_frames", "z_frames")}}
+            row = {"shots_with_frame": int((su.x_frames.any(2).any(1)
+                                            | su.z_frames.any(2).any(1))
+                                           .sum()),
+                   "failures": failures(mem, name),
+                   "prep_fail": int(su.prep_fail.sum()), "splits": splits[0],
+                   "s": round(time.perf_counter() - t1, 3)}
+            out["equal"][f"{name} {label}"] = row
+            log(f"path 14 (a) {name} {rates} B={ROLL_EQ_BATCH}: unrolled == "
+                f"scheduled {fields}; {row}")
+            if not all(fields.values()) or splits[0] != splits[1]:
+                raise RuntimeError(f"path 14 (a) {name} {label}: unrolled "
+                                   f"and scheduled differ {fields}, splits "
+                                   f"{splits}")
+            if not row["shots_with_frame"]:
+                raise RuntimeError(f"path 14 (a) {name} {label}: no shot "
+                                   f"carries a frame bit")
+
+    # idle noise: the unrolled engine charges no gate-layer idle and idles
+    # a block through its own preparation, so the draws shift; rates only
+    mem, su, regs, ss, splits = both("x", ROLL_IDLE, ROLL_EQ_BATCH, 12)
+    fu, fs = failures(mem, "x"), failures(regs, "x")
+    ok, spread = two_sample_ok(fu, ROLL_EQ_BATCH, fs, ROLL_EQ_BATCH)
+    out["idle"] = {"failures": {"unrolled": fu, "scheduled": fs},
+                   "splits": splits, "batch": ROLL_EQ_BATCH}
+    log(f"path 14 (a) X program {ROLL_IDLE} B={ROLL_EQ_BATCH}: unrolled {fu}"
+        f", scheduled {fs} failures (allowed difference {spread:.5f}); "
+        f"splits {splits}")
+    if not ok or not fu + fs:
+        raise RuntimeError(f"path 14 (a) under idle noise: {out['idle']}")
+
+    # if_then: the unrolled engine runs the conditional gate's EC on every
+    # shot, the scheduled one where the condition holds; they agree on the
+    # shots whose condition is 1, and by rate on the rest
+    mem, su, regs, ss, splits = both("feedback", ROLL_EQ_RUNS[0][1],
+                                     ROLL_EQ_BATCH, 13)
+    c = mem["ro"][:, 0] == 1
+    same = {"registers": torch.equal(mem["ro"][c], regs["ro"][c]),
+            **{f: torch.equal(getattr(su, f)[c], getattr(ss, f)[c])
+               for f in ("prep_fail", "x_frames", "z_frames")}}
+    fu = int((mem["ro"][:, 1] != 0).sum())
+    fs = int((regs["ro"][:, 1] != 0).sum())
+    ok, spread = two_sample_ok(fu, ROLL_EQ_BATCH, fs, ROLL_EQ_BATCH)
+    differ = int((mem["ro"][~c] != regs["ro"][~c]).any(dim=1).sum())
+    out["if_then"] = {"condition_1_shots": int(c.sum()), "equal": same,
+                      "failures": {"unrolled": fu, "scheduled": fs},
+                      "condition_0_registers_differ": differ,
+                      "splits": splits}
+    log(f"path 14 (a) feedback {ROLL_EQ_RUNS[0][1]} B={ROLL_EQ_BATCH}: on the "
+        f"{int(c.sum())} shots whose condition is 1 unrolled == scheduled "
+        f"{same}; ro[1] failures {fu} / {fs} (allowed difference "
+        f"{spread:.5f}); {differ} condition-0 shots' registers differ")
+    if not all(same.values()) or not ok or splits[0] != splits[1]:
+        raise RuntimeError(f"path 14 (a) if_then: {out['if_then']}")
+
+    # shots/s: the X program noiseless on 'unpacked', unrolled against
+    # scheduled, 2 warm and 3 timed calls each fenced by its host read
+    out["bench"] = {}
+    steane = families.steane()
+    for engine in ("unrolled", "scheduled"):
+        enc = rewrite_program(fp.x_program(), steane, engine=engine,
+                              device=dev)
+
+        def once(seed, enc=enc):
+            return int(enc.run(ROLL_BENCH_BATCH, seed)["ro"].sum())
+
+        once(100)
+        once(101)
+        t0 = time.perf_counter()
+        correct = sum(once(i + 1) for i in range(3))
+        dt = time.perf_counter() - t0
+        out["bench"][engine] = {
+            "shots_per_sec": 3 * ROLL_BENCH_BATCH / dt, "timed_s": dt,
+            "correct_fraction": correct / (3 * ROLL_BENCH_BATCH)}
+        log(f"path 14 (a) Steane X {engine} 'unpacked' B={ROLL_BENCH_BATCH}:"
+            f" {3 * ROLL_BENCH_BATCH / dt} shots/s, correct fraction "
+            f"{correct / (3 * ROLL_BENCH_BATCH)} ({smi})")
+        if correct != 3 * ROLL_BENCH_BATCH:
+            raise RuntimeError(f"{engine}: noiseless outcomes not all 1")
+    part_done("a_unrolled", t_part)
+
+    # -- (b) flag EC on 'frames'
+    t_part = time.perf_counter()
+    out["flag"] = {"golds": {}, "weight1": {}}
+    for code_name in FLAG_CODES:
+        code = {"steane": families.steane,
+                "surface3": lambda: families.rotated_surface(
+                    3, max_table_weight=1),
+                "color3": lambda: families.triangular_color(3)}[code_name]()
+        prog = Program()
+        ro = prog.declare("ro", 2)
+        if code.is_transversal("H"):   # test_flags.py:78's program
+            prog.x(0).h(1).cnot(1, 0).cnot(1, 0).h(1)
+            want_bits = [1, 0]
+        else:                           # the rotated surface code has no
+            prog.x(0).cnot(0, 1)        # transversal H
+            want_bits = [1, 1]
+        prog.measure(0, ro[0]).measure(1, ro[1])
+        res = rewrite_program(prog, code, tableau="frames", ec_mode="flag",
+                              device=dev).run(FLAG_GOLD_BATCH, 0)
+        exact = bool((res["ro"] == want_bits).all()
+                     and not res["__prep_fail__"].any())
+        # weight-1 errors: shot q carries X on data qubit q, shot n + q Z
+        ex = schedule.MacroExecutor(code, 1, tableau_engine="frames",
+                                    ec_mode="flag", device=dev)
+        n = code.n
+        st = ex.initial_state(2 * n, 1, seed=1)
+        eye = torch.eye(n, dtype=torch.uint8, device=dev)
+        zero = torch.zeros_like(eye)
+        xf, zf = torch.cat([eye, zero]), torch.cat([zero, eye])
+        st = st._replace(tab=ex.engine.inject_block_flips(st.tab, 0, xf, zf))
+        st = ex._ec_one_flag(st, 0)
+        # exactly where the code's LUT has one weight-1 error a syndrome;
+        # else the stabilizer-equivalent one it stores (X errors modulo
+        # the rows of H1, Z errors modulo those of H2)
+        got = torch.cat([st.x_frames[:, 0], st.z_frames[:, 0]], 1).cpu()
+        want_e = torch.cat([xf, zf], 1).cpu()
+        exact_rows = int((got == want_e).all(dim=1).sum())
+        h1 = np.asarray(code.parity_check_c1, np.uint8) & 1
+        h2 = np.asarray(code.parity_check_c2, np.uint8) & 1
+        stab = np.block([[h1, np.zeros_like(h1)], [np.zeros_like(h2), h2]])
+        equiv = all(gf2.rank(np.concatenate([stab, d[None]]))
+                    == gf2.rank(stab)
+                    for d in (got ^ want_e).numpy() if d.any())
+        distinct = all(len({tuple(c) for c in h.T.tolist()}) == n
+                       for h in (h1, h2))
+        landed = {"exact": exact_rows, "shots": 2 * n, "equivalent": equiv,
+                  "distinct_weight1_syndromes": distinct}
+        out["flag"]["golds"][code_name] = {"program": want_bits,
+                                           "exact": exact}
+        out["flag"]["weight1"][code_name] = landed
+        log(f"path 14 (b) flag EC on {code_name} (n={n}): the noiseless "
+            f"program {want_bits} at B={FLAG_GOLD_BATCH} exact: {exact}; "
+            f"weight-1 X and Z errors after one round {landed}")
+        if not exact or not equiv or (distinct and exact_rows != 2 * n):
+            raise RuntimeError(f"flag EC on {code_name}: exact {exact}, "
+                               f"weight-1 {landed}")
+    fails = {}
+    for p, (ref_k, ref_n) in FLAG_RATE_REF.items():
+        noise = NoiseModel(p_gate1=p, p_gate2=p, p_meas=p, p_reset=p)
+        enc = rewrite_program(fp.x_program(), steane, noise=noise,
+                              tableau="frames", ec_mode="flag", device=dev)
+        t0 = time.perf_counter()
+        res = enc.run(FLAG_RATE_BATCH, 2)
+        dt = time.perf_counter() - t0
+        fails[p] = int((res["ro"][:, 0] != 1).sum())
+        ok, spread = two_sample_ok(fails[p], FLAG_RATE_BATCH, ref_k, ref_n)
+        out["flag"][f"p={p}"] = {"fails": fails[p], "batch": FLAG_RATE_BATCH,
+                                 "jax": [ref_k, ref_n], "s": dt}
+        log(f"path 14 (b) flag EC Steane X p={p} B={FLAG_RATE_BATCH}: "
+            f"{fails[p]} failures ({fails[p] / FLAG_RATE_BATCH:.5f}; the JAX "
+            f"package {ref_k / ref_n:.5f}, allowed difference {spread:.5f});"
+            f" {dt:.2f} s")
+        if not ok:
+            raise RuntimeError(f"flag EC p={p}: {fails[p]} failures against "
+                               f"the JAX package's {ref_k} of {ref_n}")
+    lo, hi = fails[1e-3], fails[3e-3]
+    log(f"path 14 (b) flag EC scaling: failures(3e-3) / failures(1e-3) = "
+        f"{hi / max(lo, 1):.3f} (more than 4.5 required)")
+    if not (hi > 4.5 * lo and 0 < lo < 0.05 * FLAG_RATE_BATCH):
+        raise RuntimeError(f"flag EC is not fault-tolerant: {fails}")
+    part_done("b_flag", t_part)
+
+    # -- (c) flag_bench.py at its defaults
+    t_part = time.perf_counter()
+    rows = flag_bench.main([*FLAG_BENCH_ARGS, "--device", str(dev)])
+    out["flag_bench"] = rows
+    for row in rows:
+        log(f"path 14 (c) flag_bench {json.dumps(row)} ({smi})")
+    for p in sorted({r["p"] for r in rows}):
+        st_row, fl_row = (next(r for r in rows
+                               if r["p"] == p and r["ec_mode"] == m)
+                          for m in ("steane", "flag"))
+        ok, _ = two_sample_ok(fl_row["fails"], fl_row["shots"],
+                              st_row["fails"], st_row["shots"])
+        if not (ok or fl_row["fails"] < st_row["fails"]):
+            raise RuntimeError(f"flag_bench p={p}: flag EC fails "
+                               f"{fl_row['fails']}, Steane EC "
+                               f"{st_row['fails']}")
+    part_done("c_flag_bench", t_part)
+
+    # -- (d) fidelity, breakeven_probe and breakeven (the 'packed' runs
+    #    launch K9); one block-measurement state of the probe is kept
+    t_part = time.perf_counter()
+    fid = fidelity.main([*FIDELITY_ARGS, "--device", str(dev)])
+    log(f"path 14 (d) fidelity {json.dumps(fid)} ({smi})")
+    quiet = fidelity.encoded_x_program_error_rate(
+        ROLL_GOLD_BATCH, NoiseModel(), 3, device=dev)[0]
+    out["fidelity"] = {**fid, "noiseless_encoded_rate": quiet}
+    if quiet != 0.0:
+        raise RuntimeError(f"fidelity: noiseless encoded rate {quiet}")
+    part_done("d_fidelity", t_part)
+
+    # every packed block measurement (a reset measures too) is counted,
+    # and the last one's state kept
+    measure = engines.PackedEngine.measure_block
+    seen, calls = [], [0]
+
+    def spy(self, tab, b, generator=None, *, rand_bits=None):
+        seen[:] = [(tab, self.block_qubits(b))]
+        calls[0] += 1
+        return measure(self, tab, b, generator, rand_bits=rand_bits)
+
+    engines.PackedEngine.measure_block = spy
+    try:
+        t_part = time.perf_counter()
+        out["breakeven_probe"] = breakeven_probe.main(
+            [*BREAKEVEN_PROBE_ARGS, "--device", str(dev)])
+        for row in out["breakeven_probe"]:
+            log(f"path 14 (d) breakeven_probe {json.dumps(row)} ({smi})")
+        part_done("d_breakeven_probe", t_part)
+        out["breakeven"] = {}
+        for tableau in ("packed", "frames"):
+            t_part = time.perf_counter()
+            rows = breakeven.main([*BREAKEVEN_ARGS, "--tableau", tableau,
+                                   "--device", str(dev)])
+            out["breakeven"][tableau] = rows
+            for row in rows:
+                log(f"path 14 (d) breakeven '{tableau}' {json.dumps(row)} "
+                    f"({smi})")
+            part_done(f"d_breakeven_{tableau}", t_part)
+    finally:
+        engines.PackedEngine.measure_block = measure
+    out["packed_block_measurements"] = calls[0]
+
+    # -- (e) K9's launches by part, seconds, memory; K9 on a state (d)
+    #    measured
+    out["k9_launches"] = dict(k9)
+    out["seconds"] = {**seconds, "path": time.perf_counter() - t_path}
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"path 14 (e) K9 launches by part {k9}; seconds {out['seconds']}; "
+        f"peak {out['peak_mem_gb']:.3f} GiB ({smi})")
+    packed_parts = ("d_breakeven_probe", "d_breakeven_packed")
+    log(f"path 14 (e) packed block measurements and resets in (d): "
+        f"{calls[0]}, K9 launches there {sum(k9[k] for k in packed_parts)}")
+    if any(k9[k] <= 0 for k in packed_parts) or any(
+            v for k, v in k9.items() if k not in packed_parts) or \
+            sum(k9[k] for k in packed_parts) != calls[0]:
+        raise RuntimeError(f"K9 launches over path 14 {k9}: one a packed "
+                           f"block measurement ({calls[0]}) and 0 elsewhere "
+                           f"expected")
+    tab, qs = seen[0]
+    bits = tb.collapse_bits(torch.Generator(device=dev).manual_seed(14),
+                            tab.batch, len(qs))
+    row = msb.k9_row({"t": tab, "qubits": qs, "bits": bits,
+                      "branch": "path 14, breakeven"}, 20, int_ops_per_s)
+    log(f"K9 at path 14's breakeven state (B={row['B']} n={row['n']} "
+        f"W={row['W']} M={row['M']}, {row['random_share']:.3f} of the "
+        f"outcomes random): == plain (outcomes, x, z, r); wrapper "
+        f"{row['ms']:.4f} ms, a launch in a graph {row['hot_ms']:.4f} hot, "
+        f"{row['cold_ms']:.4f} cold; plain {row['plain_ms']:.3f} ms; bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}); plan {row['plan']}")
+    keep = ("ms", "host_ms", "hot_ms", "cold_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "random_share", "int_ops", "plan")
+    p_last = out["breakeven"]["packed"][-2]["p"]
+    k9_entry = {"launches": sum(k9.values()), "by_part": dict(k9),
+                "max_abs_err": 0,
+                "shape": f"B={row['B']} n={row['n']} W={row['W']} "
+                         f"M={row['M']} (path 14, the last block measurement "
+                         f"of breakeven 'packed', p={p_last})",
+                **{k: row[k] for k in keep}}
+    return out, k9_entry
+
+
 def main() -> int:
     try:
         import torch
@@ -2891,6 +3316,11 @@ def main() -> int:
     #    ftqc and idle benches
     ftqc_frames = path13(dev, smi, ftqc)
 
+    # -- 8l. main path 14: the rest of the FT transpiler (the unrolled
+    #    engine, flag EC on 'frames', the flag, fidelity and breakeven
+    #    benches; K9 in the 'packed' break-even runs)
+    ftqc_rest, k9_rest = path14(dev, int_ops_per_s, smi)
+
     # -- 9. kernel and plain-version times at the main paths' shapes
     defect_big = duf.stencil_defect(dg, dets_big)
     k1_ms = cuda_ms(lambda: device_uf_cuda.stencil_full(dg, defect_big), 20)
@@ -3154,8 +3584,10 @@ def main() -> int:
     print(json.dumps({"logical": logical_rows}), flush=True)
     print(json.dumps({"ftqc": ftqc}), flush=True)
     print(json.dumps({"ftqc_frames": ftqc_frames}), flush=True)
+    print(json.dumps({"ftqc_rest": ftqc_rest}), flush=True)
     k9_entry["ftqc"] = k9_ftqc
     k9_entry["ftqc_frames"] = {"launches": ftqc_frames["k9_launches"]}
+    k9_entry["ftqc_rest"] = k9_rest
     print(json.dumps({"kernels": [
         {"name": "uf_stencil_full", "route": "cuda",
          "source": "qcss_tpu_torch/csrc/uf_stencil_full.cu",

@@ -5,12 +5,13 @@ Each `Spec` builds its program through an IR namespace (`Program`,
 `Circuit`, `Block`, `parse_quil`), so the same program can be built by
 this package or by another that has the same builder surface,
 and names the code, the `rewrite_program` options and the gold: a check
-on the registers of every shot (``"__prep_fail__"`` excluded). Used by
-``chip_smoke.py`` (paths 12 and 13) and by the CPU tests.
+on the registers of every shot (``"__prep_fail__"`` excluded).
 
 `FRAMES_PROGRAMS` adds the deterministic set of the JAX package's
 tests/test_ftqc_frames.py that `PROGRAMS` lacks; `FRAMES_REFUSED` names
-the programs of both sets that the JAX package's 'frames' engine refuses.
+the programs of both sets that the JAX package's 'frames' engine refuses,
+and `UNROLLED_REFUSED` the programs of `PROGRAMS` that its unrolled engine
+refuses. Used by ``chip_smoke.py`` (paths 12-14) and by the CPU tests.
 """
 
 from __future__ import annotations
@@ -243,6 +244,23 @@ FRAMES_REFUSED = {
     "ghz4": "deterministic",
     "repeat_until": "frames",
     "classical_feedback": "deterministic",
+}
+
+# The programs of PROGRAMS that the JAX package refuses on
+# engine='unrolled' (`EncodedProgram(prog, code, engine="unrolled",
+# **options)`: ValueError for dedicated ancillas and repeated extraction,
+# UnsupportedProgramError for repeat_until), each with a part of its
+# message, from
+#   for name in PROGRAMS:
+#       prog, code = build(name, ir)   # ir: the JAX package's IR
+#       EncodedProgram(prog, code, engine="unrolled", **options)
+# (JAX 0.9.0 on the CPU; tests/test_torch_ftqc_unrolled.py builds the
+# reference's EncodedProgram again and holds the port's refusals to it).
+UNROLLED_REFUSED = {
+    "ghz4": "dedicated ancillas",
+    "repeat_until": "repeat_until",
+    "ec2": "repeated extraction",
+    "quil_two_entry_loop": "repeat_until",
 }
 
 

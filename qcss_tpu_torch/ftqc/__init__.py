@@ -2,16 +2,16 @@
 engines.
 
 `rewrite_program` validates a raw Clifford program and returns an
-`EncodedProgram`, whose `run` executes it batched over the shots as the
-macro-op rows of `schedule` (FT preparation, Steane EC after every gate,
-serial or, on frames, parallel across blocks, 2t+1 majority-vote
-measurement) on the 'unpacked' or 'packed' tableau engine or the
-'frames' Pauli-frame engine (`engines`; the packed one measures blocks
-with K9 on the card).
+`EncodedProgram`, whose `run` executes it batched over the shots: by
+default as the macro-op rows of `schedule` (FT preparation, Steane or flag
+EC after every gate, serial or, on frames, parallel across blocks, 2t+1
+majority-vote measurement) on the 'unpacked' or 'packed' tableau engine or
+the 'frames' Pauli-frame engine (`engines`; the packed one measures blocks
+with K9 on the card), or with ``engine='unrolled'`` as one call of the
+protocols of `FTProtocols` (`executor`) per instruction. `flags` builds
+flag EC's CNOT orders and hook tables.
 
-Not ported yet (ROADMAP.md, queue 1): the unrolled engine
-(``engine='unrolled'``, with `CodeBlock`, `ExecState` and `FTProtocols`),
-flag EC and magic-state injection.
+Not ported yet (ROADMAP.md, queue 1): magic-state injection (`magic`).
 """
 
 from qcss_tpu_torch.ftqc.engines import (
@@ -19,6 +19,7 @@ from qcss_tpu_torch.ftqc.engines import (
     PackedEngine,
     UnpackedEngine,
 )
+from qcss_tpu_torch.ftqc.executor import CodeBlock, ExecState, FTProtocols
 from qcss_tpu_torch.ftqc.rewrite import (
     EncodedProgram,
     rewrite_program,
@@ -26,7 +27,10 @@ from qcss_tpu_torch.ftqc.rewrite import (
 )
 
 __all__ = [
+    "CodeBlock",
     "EncodedProgram",
+    "ExecState",
+    "FTProtocols",
     "FrameEngine",
     "PackedEngine",
     "UnpackedEngine",

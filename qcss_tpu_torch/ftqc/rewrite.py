@@ -19,14 +19,15 @@ reference's structure exactly:
   reference routes this through Quil jump instructions with mangled labels
   (reference: ftqc.py:98-103).
 
-The program runs as the macro-op rows of `ftqc.schedule`, batched over the
-shots on the card (``device="cuda"``, the default) or on the CPU, on the
-'unpacked', 'packed' or 'frames' engine; for 'frames' the reference
+The scheduled engine (the default) runs the program as the macro-op rows
+of `ftqc.schedule`, batched over the shots on the card (``device="cuda"``,
+the default) or on the CPU, on the 'unpacked', 'packed' or 'frames'
+engine, with Steane or (on 'frames') flag EC; for 'frames' the reference
 outcomes are recorded once (`schedule.reference_outcomes`), which refuses a
 program whose measured blocks are not in definite Z̄ eigenstates. The
-unrolled engine (``engine='unrolled'``) and flag EC (``ec_mode='flag'``)
-are not ported yet (ROADMAP.md, queue 1); they raise `NotImplementedError`
-after the reference's validation.
+unrolled engine (``engine='unrolled'``) walks the program's instructions
+on the host and calls the protocols of `ftqc.executor.FTProtocols` one by
+one; both engines run the same executor bodies.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import torch
 
 from qcss_tpu_torch import _cuda
 from qcss_tpu_torch.circuits.ir import (
+    BitRef,
     ClassicalInst,
     DeclareInst,
     PragmaInst,
@@ -52,10 +54,8 @@ from qcss_tpu_torch.errors import (
     UnsupportedProgramError,
     UnsupportedQECCError,
 )
+from qcss_tpu_torch.ftqc.executor import ExecState, FTProtocols
 from qcss_tpu_torch.sim import noise as noise_mod
-
-_NOT_PORTED = ("is not ported yet (ROADMAP.md, queue 1: the unrolled "
-               "engine is item 3 (c), flag EC item 4)")
 
 
 class EncodedProgram:
@@ -115,11 +115,13 @@ class EncodedProgram:
         self.memory = dict(raw.memory)
         self._scheduled = None  # (macro, executor, ref_outs), built once
         self._validate()
-        if engine == "unrolled":
-            raise NotImplementedError(f"engine='unrolled' {_NOT_PORTED}")
-        if ec_mode == "flag":
-            raise NotImplementedError(f"ec_mode='flag' {_NOT_PORTED}")
         self.device = _cuda.resolve_device(device)
+        # Blocks: one per logical qubit, then two shared EC/measure
+        # ancillas (the unrolled engine's protocols, built once).
+        self.protocols = (
+            FTProtocols(code, self.n_logical + 2, self.noise,
+                        max_prep_attempts, device=self.device)
+            if engine == "unrolled" else None)
 
     def _validate(self):
         code = self.code
@@ -178,6 +180,89 @@ class EncodedProgram:
 
     # -- execution ---------------------------------------------------------------
 
+    def _blocks(self):
+        p = self.protocols
+        data = [p.block(i) for i in range(self.n_logical)]
+        anc1 = p.block(self.n_logical)
+        anc2 = p.block(self.n_logical + 1)
+        return data, anc1, anc2
+
+    def _execute(self, batch: int, seed: int,
+                 generator: torch.Generator | None
+                 ) -> tuple[dict[str, torch.Tensor], ExecState]:
+        """The unrolled engine: the program's instructions walked on the
+        host, each one a call of the protocols (reference:
+        ftqc.py:42-120). Returns the registers (``"__prep_fail__"``
+        included) and the final state."""
+        p = self.protocols
+        data, anc1, anc2 = self._blocks()
+        st = p.init_state(batch, seed, generator=generator)
+        mem = {
+            name: torch.zeros((batch, size), dtype=torch.uint8,
+                              device=self.device)
+            for name, size in self.memory.items()
+        }
+
+        def ec_all(s: ExecState) -> ExecState:
+            for block in data:
+                s = p.error_correct(s, block, anc1, anc2)
+            return s
+
+        def set_bit(ref, value):
+            reg = mem[ref.name].clone()
+            reg[:, ref.index] = value
+            mem[ref.name] = reg
+
+        # FT-prepare every logical block in |0̄⟩ (reference: ftqc.py:77-78).
+        for block in data:
+            st = p.encode_zero(st, block, anc1)
+
+        for inst in self.raw.instructions:
+            if isinstance(inst, (DeclareInst, PragmaInst)):
+                continue
+            if isinstance(inst, GateInst):
+                blocks = [data[self.qubit_map[q]] for q in inst.qubits]
+                st = p.apply_logical_gate(st, inst.name, blocks)
+                st = ec_all(st)
+            elif isinstance(inst, IfThenInst):
+                # the gate is masked; its EC round runs on every shot, as
+                # the reference's unrolled engine runs it
+                mask = mem[inst.condition.name][:, inst.condition.index]
+                for g in inst.body:
+                    blocks = [data[self.qubit_map[q]] for q in g.qubits]
+                    st = p.apply_logical_gate(st, g.name, blocks, mask=mask)
+                    st = ec_all(st)
+            elif isinstance(inst, MeasureInst):
+                block = data[self.qubit_map[inst.qubit]]
+                st, outcome = p.measure(st, block, anc1, anc2,
+                                        ec_between=ec_all)
+                set_bit(inst.target, outcome)
+            elif isinstance(inst, ClassicalInst):
+                # Pass-through of user classical instructions
+                # (reference: ftqc.py:111-116) as memory arithmetic.
+                cur = mem[inst.dst.name][:, inst.dst.index]
+                if isinstance(inst.src, BitRef):
+                    src = mem[inst.src.name][:, inst.src.index]
+                elif inst.src is None:
+                    src = None
+                else:
+                    src = torch.full_like(cur, int(inst.src))
+                new = {
+                    "MOVE": lambda: src,
+                    "NOT": lambda: 1 ^ cur,
+                    "AND": lambda: cur & src,
+                    "IOR": lambda: cur | src,
+                    "XOR": lambda: cur ^ src,
+                }[inst.op]()
+                set_bit(inst.dst, new)
+            elif isinstance(inst, ResetInst):
+                block = data[self.qubit_map[inst.qubit]]
+                st = p.encode_zero(st, block, anc1)
+            else:  # pragma: no cover - validated away
+                raise UnsupportedProgramError(str(inst))
+        mem["__prep_fail__"] = st.prep_fail[:, None]
+        return mem, st
+
     def _prepare_scheduled(self):
         """Lower once, build the executor and (for the 'frames' engine)
         record the reference measurement outcomes."""
@@ -207,12 +292,16 @@ class EncodedProgram:
         arrays [batch, size] — the analogue of the reference's
         ``qvm.run(prog)`` result matrix (reference: test/test_ftqc.py:153-156).
         Randomness comes from ``generator`` when given, else from ``seed``
-        (`schedule.MacroExecutor` seeds one generator a sub-operation).
+        (`schedule.MacroExecutor` seeds one generator a sub-operation; the
+        two engines split alike).
 
         The reserved register ``"__prep_fail__"`` ([batch, 1] uint8) flags
         samples where some FT preparation exhausted ``max_prep_attempts``
         without passing verification; callers can discard those shots or
         bound the unverified fraction."""
+        if self.engine == "unrolled":
+            out, _ = self._execute(batch, seed, generator)
+            return {name: v.cpu().numpy() for name, v in out.items()}
         macro, executor, ref_outs = self._prepare_scheduled()
         st = executor.execute(macro, batch, seed=seed, generator=generator,
                               ref_outs=ref_outs)
@@ -238,8 +327,10 @@ def rewrite_program(raw: Program, code, *,
     """Validate and FT-encode a raw Clifford program — the framework's
     flagship entry point (reference analogue: ftqc.py:42).
 
-    engine: 'scheduled' (macro-op rows; `ftqc.schedule`). 'unrolled' is
-    validated as in the reference but not ported yet.
+    engine: 'scheduled' (macro-op rows; `ftqc.schedule`) or 'unrolled'
+    (the program's instructions walked on the host over `FTProtocols`;
+    'unpacked' tableau, shared ancillas, one extraction, serial Steane EC,
+    no repeat_until or guarded instructions).
     tableau: 'unpacked' (byte-per-bit, best for small codes), 'packed'
     (32-bit words, word-aligned blocks, block measurements on K9 on the
     card; best for surface-code-scale blocks) or 'frames' (Pauli frames
@@ -259,8 +350,11 @@ def rewrite_program(raw: Program, code, *,
     tableau='frames'; under idle noise this removes the n_logical-fold
     idle exposure the serial schedule charges to waiting blocks).
     ec_mode: 'steane' (encoded-ancilla transversal extraction, the
-    reference's protocol — css_code.py:436-470); 'flag' is validated as
-    in the reference but not ported yet.
+    reference's protocol — css_code.py:436-470) or 'flag' (bare
+    ancilla+flag qubit per stabilizer, sequential CNOTs, adaptive
+    re-extraction with flag-conditioned hook decoding — Chao-Reichardt/
+    Chamberland-Beverland; t=1 codes, frames engine; 2 bare ancillas
+    replace the 2n-qubit verified ancilla blocks per EC extraction).
     device: where the shots run ("cuda" by default; "cpu" runs the plain
     PyTorch versions).
     """

@@ -46,8 +46,10 @@ the unpacked engine's and the two give identical registers and
 frames only) runs every block's Steane round at once, its
 repeat-until-success preparation a host loop of at most
 ``max_prep_attempts`` attempts committed per (sample, block). Flag EC
-(``ec_mode='flag'``) is not ported yet (ROADMAP.md, queue 1, item 4); it
-raises `NotImplementedError` after the reference's checks.
+(``ec_mode='flag'``, frames only) measures each stabilizer with a bare
+ancilla and a flag qubit (`ftqc.flags` builds the CNOT orders and the
+flag-conditioned tables); its second extraction runs over the whole batch
+every round and commits per sample, so every round takes the same splits.
 """
 
 from __future__ import annotations
@@ -93,10 +95,6 @@ OP_NOP = 6  # padding row (`macro_rows(pad_to=)`); the executor skips it
 # for S — reference: test/test_css_code.py:25).
 GATE_IDS = {"I": 0, "X": 1, "Y": 2, "Z": 3, "H": 4, "S": 5, "CNOT": 6, "CZ": 7,
             "PHASE": 5}
-
-_NOT_PORTED = ("is not ported yet (ROADMAP.md, queue 1, item 4: flag EC "
-               "with ftqc/flags.py)")
-
 
 def circuit_depth(arrays) -> int:
     """ASAP-layered depth of an array-lowered circuit (host-side): the
@@ -344,9 +342,6 @@ class MacroExecutor:
                 raise ValueError("ec_schedule='parallel' requires "
                                  "tableau='frames'")
         self.ec_schedule = ec_schedule if not reference_mode else "serial"
-        # The combination the reference accepts that this port does not run.
-        if self.ec_mode == "flag":
-            raise NotImplementedError(f"ec_mode='flag' {_NOT_PORTED}")
         # reference_mode: the noiseless run that records per-measure-site
         # reference outcomes for the 'frames' engine. Pauli gates are
         # skipped (they ride the frame in the frame run) and measure
@@ -458,6 +453,18 @@ class MacroExecutor:
             + self._detect_steps[(True, True)],
         }
         self._idle_masks: dict[tuple, torch.Tensor] = {}
+        if self.ec_mode == "flag":
+            from qcss_tpu_torch.ftqc import flags as flags_mod
+
+            self._flag = flags_mod.build_flag_data(code)
+            # flags on H1 rows condition the X-error decode; H2 rows the
+            # Z-error decode (hooks deposit the SAME Pauli type as the
+            # measured stabilizer — see flags.py docstring)
+            self._flag_cond_x = torch.as_tensor(
+                self._flag.x_sector.cond_lut, device=self.device)
+            self._flag_cond_z = torch.as_tensor(
+                self._flag.z_sector.cond_lut, device=self.device)
+            self._flag_idle_rates = None  # built at first use
         self._seed = 0
         self._splits = 0
 
@@ -717,6 +724,213 @@ class MacroExecutor:
         return st._replace(z_frames=_with_block(
             st.z_frames, b, st.z_frames[:, b, :] ^ corr))
 
+    # -- flag EC (ec_mode='flag'; frames engine; t=1 codes) ------------------------
+    #
+    # Chamberland-Beverland distance-3 protocol (arXiv:1708.02246),
+    # batched: one FLAGGED extraction of every stabilizer (bare syndrome
+    # ancilla + bare flag qubit, sequential CNOTs — 2 ancilla qubits
+    # instead of the 2 encoded verifier blocks Steane EC burns per
+    # extraction); samples with any syndrome or flag run ONE more
+    # unflagged extraction (committed per sample, like the RUS prep
+    # bodies) and decode ITS syndrome — with the flag-conditioned hook
+    # table where a flag fired, the standard LUT otherwise. Single-fault
+    # FT: a measurement flip corrupts only extraction 1 (unused); a hook
+    # fires its flag and extraction 2 reads the hook's full syndrome,
+    # which the conditional table corrects exactly; a fault inside
+    # extraction 2 implies extraction 1 was clean, so the state is clean
+    # and any weight<=1 mis-correction is correctable next round. The
+    # second extraction runs over the whole batch (no host read decides
+    # whether it runs), so every round takes the same splits.
+
+    def _flag_anc_qubits(self, b: int):
+        """(syndrome-ancilla, flag) bare qubit indices serving block b —
+        the first two qubits of the block's anc1 ancilla block."""
+        anc1, _ = self._anc_pair(b)
+        base = np.asarray([anc1 * self.engine.stride], np.int64)
+        return base, base + 1
+
+    def _flag_cnot(self, st: MachineState, qc, qt) -> MachineState:
+        st, gen = self._split(st)
+        return st._replace(tab=self.engine.cnot_qubits(st.tab, qc, qt, gen))
+
+    def _flag_h(self, st: MachineState, q) -> MachineState:
+        st, gen = self._split(st)
+        return st._replace(tab=self.engine.h_qubits(st.tab, q, gen))
+
+    def _flag_meas(self, st: MachineState, q):
+        tab, out = self.engine.measure_qubits(st.tab, q)
+        st = st._replace(tab=tab)
+        out = out[:, 0]
+        if self.noise.p_meas:
+            st, gen = self._split(st)
+            out = noise_mod.flip_bits(out, self.noise.p_meas, gen)
+        return st, out
+
+    def _flag_reset_pair(self, st: MachineState, pair_q) -> MachineState:
+        st = st._replace(tab=self.engine.reset_blocks(st.tab, pair_q))
+        if self.noise.p_reset:
+            st, gen = self._split(st)
+            B = st.x_frames.shape[0]
+            flips = (torch.rand((B, 2), generator=gen, device=self.device)
+                     < self.noise.p_reset).to(torch.uint8)
+            st = st._replace(tab=fr.inject_flips(st.tab, pair_q, flips,
+                                                 torch.zeros_like(flips)))
+        return st
+
+    def _flag_idle_block(self, st: MachineState, b: int,
+                         flagged: bool) -> MachineState:
+        """Per-qubit idle noise WITHIN block b over one full extraction:
+        qubit q idles for (total steps - #stabilizers touching q); the
+        per-qubit composed channel is evaluated in closed form in float32,
+        one draw."""
+        if not self._idle_on:
+            return st
+        if self._flag_idle_rates is None:
+            rate = self.noise.rate_idle
+            if isinstance(rate, tuple):
+                px, py, pz = rate
+            else:
+                px = py = pz = rate / 3.0
+            rates = {}
+            for fl, steps in ((True, self._flag.idle_steps_flagged),
+                              (False, self._flag.idle_steps_unflagged)):
+                s = torch.as_tensor(steps, dtype=torch.float32,
+                                    device=self.device)
+                lx = torch.pow(1.0 - 2.0 * (py + pz), s)
+                ly = torch.pow(1.0 - 2.0 * (px + pz), s)
+                lz = torch.pow(1.0 - 2.0 * (px + py), s)
+                px2 = torch.clamp((1.0 + lx - ly - lz) / 4.0, min=0.0)
+                py2 = torch.clamp((1.0 - lx + ly - lz) / 4.0, min=0.0)
+                pz2 = torch.clamp((1.0 - lx - ly + lz) / 4.0, min=0.0)
+                rates[fl] = (px2 + py2, px2, px2 + py2 + pz2)
+            self._flag_idle_rates = rates
+        x_hi, z_lo, z_hi = self._flag_idle_rates[flagged]
+        st, gen = self._split(st)
+        B = st.x_frames.shape[0]
+        u = torch.rand((B, self.n), generator=gen, device=self.device)
+        xf = (u < x_hi[None]).to(torch.uint8)
+        zf = ((u >= z_lo[None]) & (u < z_hi[None])).to(torch.uint8)
+        return st._replace(
+            tab=self.engine.inject_block_flips(st.tab, b, xf, zf))
+
+    def _flag_extract(self, st: MachineState, b: int, flagged: bool):
+        """One full (both-sector) bare-ancilla syndrome extraction of
+        block b. Returns (st, syn_x [B,r2], syn_z [B,r1], flags_z [B,r2],
+        flags_x [B,r1]); syndromes are relative to the known frames, flag
+        arrays are zeros when flagged=False. Hook directions: the Z-type
+        stabilizers (H2 rows, the anc-|0> circuits) hook Z errors, so
+        their flags land in flags_z; mirrored for H1."""
+        off = b * self.engine.stride
+        anc_q, flag_q = self._flag_anc_qubits(b)
+        pair_q = np.concatenate([anc_q, flag_q])
+
+        def one_stab(st, sup, x_type: bool):
+            """x_type=False: Z-stab (anc |0>, CNOT data->anc, measure Z);
+            x_type=True: X-stab (anc |+>, CNOT anc->data, measure X)."""
+            st = self._flag_reset_pair(st, pair_q)
+            dq = off + np.asarray(sup, np.int64)
+            if x_type:
+                st = self._flag_h(st, anc_q)
+            elif flagged:
+                st = self._flag_h(st, flag_q)      # flag |+> for Z-stabs
+
+            def dcnot(st, j):
+                if x_type:
+                    return self._flag_cnot(st, anc_q, dq[j:j + 1])
+                return self._flag_cnot(st, dq[j:j + 1], anc_q)
+
+            def fcnot(st):
+                if x_type:
+                    return self._flag_cnot(st, anc_q, flag_q)
+                return self._flag_cnot(st, flag_q, anc_q)
+
+            st = dcnot(st, 0)
+            if flagged:
+                st = fcnot(st)
+            for j in range(1, len(sup) - 1):
+                st = dcnot(st, j)
+            if flagged:
+                st = fcnot(st)
+            if len(sup) > 1:
+                st = dcnot(st, len(sup) - 1)
+            if x_type:
+                st = self._flag_h(st, anc_q)
+            st, bit = self._flag_meas(st, anc_q)
+            fb = None
+            if flagged:
+                if not x_type:
+                    st = self._flag_h(st, flag_q)  # X-basis flag readout
+                st, fb = self._flag_meas(st, flag_q)
+            return st, bit, fb
+
+        syn_x_bits, fz_bits = [], []
+        for sup in self._flag.z_sector.supports:
+            st, bit, fb = one_stab(st, sup, x_type=False)
+            syn_x_bits.append(bit)
+            if flagged:
+                fz_bits.append(fb)
+        syn_z_bits, fx_bits = [], []
+        for sup in self._flag.x_sector.supports:
+            st, bit, fb = one_stab(st, sup, x_type=True)
+            syn_z_bits.append(bit)
+            if flagged:
+                fx_bits.append(fb)
+
+        syn_x = torch.stack(syn_x_bits, dim=1) ^ gf2_torch.syndromes_dense(
+            st.x_frames[:, b], self.h2)
+        syn_z = torch.stack(syn_z_bits, dim=1) ^ gf2_torch.syndromes_dense(
+            st.z_frames[:, b], self.h1)
+        if flagged:
+            fz, fx = torch.stack(fz_bits, dim=1), torch.stack(fx_bits, dim=1)
+        else:
+            fz, fx = torch.zeros_like(syn_x), torch.zeros_like(syn_z)
+        # idle: every OTHER data block waits out the extraction; block b's
+        # own off-support qubits idle per the static per-qubit step counts
+        steps = (self._flag.steps_flagged if flagged
+                 else self._flag.steps_unflagged)
+        st = self._idle_data(st, (b,), steps)
+        st = self._flag_idle_block(st, b, flagged)
+        return st, syn_x, syn_z, fz, fx
+
+    @staticmethod
+    def _first_set(bits: torch.Tensor) -> torch.Tensor:
+        """Index of the first 1 along the last axis (0 where none is set),
+        as `jnp.argmax` picks it: each position weighted by its distance
+        from the end, so the maximum is unique wherever a bit is set."""
+        r = bits.shape[-1]
+        w = torch.arange(r, 0, -1, dtype=torch.int32, device=bits.device)
+        return torch.argmax(bits.to(torch.int32) * w, dim=-1)
+
+    def _ec_one_flag(self, st: MachineState, b: int) -> MachineState:
+        """One flag-EC round on block b (see section comment)."""
+        st1, sx1, sz1, fz, fx = self._flag_extract(st, b, flagged=True)
+        needs2 = ((sx1 == 1).any(dim=1) | (sz1 == 1).any(dim=1)
+                  | (fz == 1).any(dim=1) | (fx == 1).any(dim=1)
+                  ).to(torch.uint8)
+        st2, sx2, sz2, _, _ = self._flag_extract(st1, b, flagged=False)
+        st2 = self._select_state(needs2, st2, st1)
+        m = needs2.to(torch.bool)[:, None]
+        sx2 = torch.where(m, sx2, torch.zeros_like(sx2))
+        sz2 = torch.where(m, sz2, torch.zeros_like(sz2))
+
+        any_fx = (fx == 1).any(dim=1)
+        corr_x = torch.where(
+            any_fx[:, None],
+            self._flag_cond_x[self._first_set(fx),
+                              gf2_torch.bits_to_index(sx2).to(torch.int64)],
+            decode_lut.decode_corrections(sx2, self.lut2))
+        st2 = st2._replace(x_frames=_with_block(
+            st2.x_frames, b, st2.x_frames[:, b] ^ corr_x))
+
+        any_fz = (fz == 1).any(dim=1)
+        corr_z = torch.where(
+            any_fz[:, None],
+            self._flag_cond_z[self._first_set(fz),
+                              gf2_torch.bits_to_index(sz2).to(torch.int64)],
+            decode_lut.decode_corrections(sz2, self.lut1))
+        return st2._replace(z_frames=_with_block(
+            st2.z_frames, b, st2.z_frames[:, b] ^ corr_z))
+
     # -- parallel EC (ec_schedule='parallel'; frames engine) ----------------------
     #
     # The serial path runs one block's Steane round at a time (the
@@ -958,7 +1172,11 @@ class MacroExecutor:
 
     def _op_ec_all(self, st: MachineState, a) -> MachineState:
         mask = self._cond_mask(st, a[0])
-        if self.ec_schedule == "parallel":
+        if self.ec_mode == "flag":
+            new = st
+            for b in range(self.n_logical):
+                new = self._ec_one_flag(new, b)
+        elif self.ec_schedule == "parallel":
             new = self._ec_all_parallel(st)
         else:
             new = st

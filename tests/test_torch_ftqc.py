@@ -10,11 +10,12 @@ The reference's executor is never run here: each of its compiles costs
   included;
 * the reference's exact outcome golds (tests/test_ftqc.py,
   tests/test_quil.py), each case naming the test it stands in for;
-* the reference's validation: the same exception types and messages for
-  every refused argument, and `NotImplementedError` naming ROADMAP.md's
-  queue 1 for the combinations the reference accepts and the port has
-  not ported (the unrolled engine and flag EC; the frame engine and
-  parallel EC are held in tests/test_torch_ftqc_frames.py);
+* the reference's validation: the same outcome for every combination of
+  arguments, the same exception types and messages where it refuses and
+  none where it accepts (the frame engine and parallel EC are held in
+  tests/test_torch_ftqc_frames.py, the unrolled engine in
+  tests/test_torch_ftqc_unrolled.py, flag EC in
+  tests/test_torch_ftqc_flag.py);
 * the reference's failure and preparation-failure counts of the noisy
   Steane X program (two-sample 99.9% tests; the samplers differ).
 
@@ -178,10 +179,6 @@ def _outcome(fn):
     return None
 
 
-def _unported(kw) -> bool:
-    return kw.get("engine") == "unrolled" or kw.get("ec_mode") == "flag"
-
-
 ENCODE_GRID = [
     dict(engine=e, tableau=t, ancillas=a, ec_extractions=x, ec_schedule=s,
          ec_mode=m)
@@ -199,11 +196,7 @@ def test_encoded_program_validation():
         want = _outcome(lambda: JEncodedProgram(jprog, jcode, **kw))
         got = _outcome(lambda: EncodedProgram(tprog, tcode, device="cpu",
                                               **kw))
-        if want is None and _unported(kw):
-            assert got[0] == "NotImplementedError", (kw, got)
-            assert "ROADMAP.md, queue 1" in got[1]
-        else:
-            assert got == want, kw
+        assert got == want, kw
 
 
 def test_encoded_program_refuses_programs():
@@ -250,13 +243,7 @@ def test_macro_executor_validation():
         want = _outcome(lambda: jsched.MacroExecutor(jcode, 1, **kw))
         got = _outcome(lambda: tsched.MacroExecutor(tcode, 1, device="cpu",
                                                     **kw))
-        ref = kw.get("reference_mode", False)
-        unported = kw.get("ec_mode") == "flag" and not ref
-        if want is None and unported:
-            assert got[0] == "NotImplementedError", (kw, got)
-            assert "ROADMAP.md, queue 1" in got[1]
-        else:
-            assert got == want, kw
+        assert got == want, kw
 
 
 # -- the engines against each other, and the generator ------------------------------

@@ -30,7 +30,11 @@ PORT_MODULES = [
     "qcss_tpu_torch._cuda",
     "qcss_tpu_torch.benchmarks.belief_bench",
     "qcss_tpu_torch.benchmarks.bp_bench",
+    "qcss_tpu_torch.benchmarks.breakeven",
+    "qcss_tpu_torch.benchmarks.breakeven_probe",
     "qcss_tpu_torch.benchmarks.device_uf_bench",
+    "qcss_tpu_torch.benchmarks.fidelity",
+    "qcss_tpu_torch.benchmarks.flag_bench",
     "qcss_tpu_torch.benchmarks.ftqc_bench",
     "qcss_tpu_torch.benchmarks.ftqc_programs",
     "qcss_tpu_torch.benchmarks.idle_bench",
@@ -92,6 +96,8 @@ PORT_MODULES = [
     "qcss_tpu_torch.experiments.surgery_t",
     "qcss_tpu_torch.ftqc",
     "qcss_tpu_torch.ftqc.engines",
+    "qcss_tpu_torch.ftqc.executor",
+    "qcss_tpu_torch.ftqc.flags",
     "qcss_tpu_torch.ftqc.rewrite",
     "qcss_tpu_torch.ftqc.schedule",
     "qcss_tpu_torch.native",
@@ -134,7 +140,9 @@ def test_import_leaves_jax_out():
 
 
 def _rewired(rel: str) -> str:
-    return (ROOT / "qcss_tpu" / rel).read_text().replace(
+    # the JAX package's benchmarks live beside it, at the repo's root
+    base = ROOT if rel.startswith("benchmarks/") else ROOT / "qcss_tpu"
+    return (base / rel).read_text().replace(
         "qcss_tpu.", "qcss_tpu_torch.").replace(
         "from qcss_tpu import", "from qcss_tpu_torch import")
 
@@ -163,7 +171,8 @@ VERBATIM = ["errors.py", "circuits/ir.py", "circuits/encoding.py",
             "codes/symplectic.py", "codes/distance.py", "decode/dem.py",
             "decode/blossom.py", "decode/calibrate.py", "decode/mwpm.py",
             "sim/statevec.py", "decode/dem2.py", "decode/bp_dem.py",
-            "decode/bp_streaming.py", "experiments/resources.py"]
+            "decode/bp_streaming.py", "experiments/resources.py",
+            "ftqc/flags.py"]
 
 
 @pytest.mark.parametrize("rel", VERBATIM)
@@ -240,6 +249,7 @@ COPIED_DEFS = [
                           "OP_MEASURE_TRIAL", "OP_VOTE_STORE", "OP_CLASSICAL",
                           "OP_NOP", "GATE_IDS", "circuit_depth",
                           "MacroProgram", "lower", "macro_rows"]),
+    ("benchmarks/breakeven.py", ["wilson"]),
 ]
 
 
