@@ -241,6 +241,38 @@ the stencil kernel:
    reset in (d), 0 elsewhere), seconds by part and peak memory, then K9
    against its plain version bit for bit and timed on the last state
    breakeven 'packed' measured; one JSON line `ftqc_rest`;
+   main path 15, magic states and the mesh (no kernel of its own; K8 and
+   K6 in the injection's final decode, K1, K2, K6, K8 and K9 on the
+   sharded pipelines' paths): (a) `distill_cascade(1e-2, 3)` (level 1
+   within 20 p of 35 p^3), `benchmarks/magic_bench.py` at its defaults
+   (the exact cascade; `distill_mc` at B=2^24 inside the exact map's 99.9%
+   intervals; `distill_circuit` at p_clifford=1e-4, B=2^20; samples/s
+   each; the factory row), every one of the 2^15 Z-injection patterns in
+   one quiet `distill_circuit(inject=...)` batch, its accept / error bits
+   equal to the coset membership computed on the host, and the quiet
+   circuit at B=2^20 inside the exact map's intervals; (b)
+   `magic_injection_experiment` on Steane at B=2^20: quiet (p_accept 1,
+   eps = p_z inside p_t's interval), a certain T fault (Z̄ on every shot)
+   and noisy (p=2e-3 everywhere: postselected eps below the
+   unconditioned), K8 and K6 launched twice each a call (one a sector);
+   `factory_report` at magic_bench's settings, equal to its factory row,
+   fed into `logical_resource_report(factory=...)` for CNOT(0,1); T(1)
+   priced from host-decoded failures at d = 3, 5; (c) the twelve
+   pipelines of `qcss_tpu_torch.parallel` on `make_mesh()` (one card)
+   and on a mesh naming the card twice (a test of the sharding logic, not
+   of speed across cards), and over all cards where there are several:
+   each equal to its unsharded entry point at the shard seeds, or to n
+   reps of one whose rep i draws shard i's shots (counts summed, samples
+   concatenated; the FT program rebuilt by `EncodedProgram.on`), the
+   sparse and hybrid fused decoders also within two-sample 99.9% of
+   `memory_experiment(decoder='device-dem')` on the same shots,
+   `error_rate_curve(mesh=)` equal to
+   `sharded_logical_error_rate`'s points, and each pipeline's launches
+   of K1, K2, K6, K8 and K9 (the kernels its path runs must launch);
+   then K1 and K2 on the d=7 frame memory's shard-0 detectors, K8 then
+   K6 at the injection's shape and on the Monte Carlo's errors, and K9
+   on the last block the sharded FT run measured, each against its plain
+   version, timed; one JSON line `magic_mesh`;
 9. times each kernel, its plain version and (K6, K7) the dense matmul
    form at the main paths' shapes, beside each kernel's bound, checking
    each timed output against the plain version's; K9 and K2 through
@@ -440,6 +472,25 @@ FIDELITY_ARGS = ()                    # fidelity.py at its defaults
 BREAKEVEN_PROBE_ARGS = ("--shots", "16384", "--tableau", "packed")
 BREAKEVEN_ARGS = ("--ps", "1e-3", "3e-4", "--min-shots", "65536",
                   "--chunk", "32768")
+MAGIC_P_IN = 1e-2                     # magic_bench's --p-in
+MAGIC_P_CLIFFORD = 1e-4               # magic_bench's --p-clifford
+MAGIC_CIRCUIT_BATCH = 1 << 20         # magic_bench's --circuit-batch
+MAGIC_BENCH_ARGS = ()                 # magic_bench.py at its defaults
+MAGIC_NOISY_INJECTION = 2e-3          # every Clifford channel
+MAGIC_REPORT_P = 2e-3                 # CNOT(0,1); T(1) priced at p = q
+MAGIC_REPORT_BATCH = 8192
+MESH_SEED = 15
+MESH_MC = (1 << 22, 0.01)             # Steane: batch a shard, p
+MESH_LER = (1 << 22, 1 << 20)         # samples, batch a shard (4 rounds)
+MESH_FTQC_BATCH = 8192                # packed Steane X program, a shard
+MESH_FRAME = (7, 7, 16384, 2e-3, 1e-2)  # d, rounds, batch, p_gate2, p_meas
+MESH_BP = (6, 4096, 3e-3, 32)         # bb72: rounds, batch, p = q, iters
+MESH_QLDPC = (3, 2048, 1e-3, 32)      # bb72: rounds, batch, p, iters
+MESH_SOFT = (5, 5, 16384, 3e-3, 0.7)  # d, rounds, batch, p, sigma
+MESH_PROGRAM = (1 << 15, 2e-3)        # compiled CNOT d=3: batch, p = q
+MESH_TWO_LEVEL = (3, 3, 3, 4e-3, 8192)  # d, k, rounds_l, p = q, batch
+MESH_MLD = (0.05, 1 << 16)            # Steane: p, batch
+MESH_PW = (5, 40, 4096, 4e-3)         # d, rounds, batch, p = q
 Z999 = 3.2905
 
 
@@ -582,6 +633,713 @@ def k1_report(label, device_uf_cuda, duf, dg, defect, int_ops_per_s):
                   + (st.kernel_chunk_tables.numel() if NC else 0))
     return plan, {"rounds": rounds, "candidate_reads": reads}, bound(
         nbytes, reads, int_ops_per_s)
+
+
+def _counts_of(rates: dict, n: int, keys) -> dict:
+    """Rates of ``n`` shots back to counts (every rate is a count / n)."""
+    return {k: round(rates[k] * n) for k in keys}
+
+
+def _summed(*dicts) -> dict:
+    return {k: sum(d[k] for d in dicts) for k in dicts[0]}
+
+
+def _in_interval(k: int, n: int, p: float) -> tuple[bool, float]:
+    """|k/n - p| within the 99.9% normal interval of Binomial(n, p)."""
+    spread = Z999 * math.sqrt(p * (1 - p) / n)
+    return abs(k / n - p) <= spread, spread
+
+
+def _two_sample(k1: int, k2: int, n: int) -> bool:
+    """k1 / n and k2 / n within the two-sample 99.9% normal interval."""
+    pooled = (k1 + k2) / (2 * n)
+    return abs(k1 - k2) / n <= Z999 * math.sqrt(pooled * (1 - pooled)
+                                                * 2 / n)
+
+
+def path15(dev, int_ops_per_s, smi):
+    """Main path 15, magic states and the mesh: (a) the distillation map
+    (`ftqc.magic`): the cascade's 35 p^3 term, `benchmarks/magic_bench.py`
+    at its defaults (the Monte Carlo at B=2^24 and the circuit tier at
+    B=2^20 against the exact map, samples/s), every one of the 2^15
+    injection patterns in one quiet `distill_circuit(inject=...)` batch
+    against the coset membership, the quiet circuit at B=2^20; (b)
+    injection (`experiments.injection`) on Steane at B=2^20, quiet and
+    noisy, and `factory_report` at magic_bench's settings fed into
+    `logical_resource_report(factory=...)`, K8 and K6 once each a sector
+    decode; (c) the twelve sharded pipelines of `parallel` on
+    `make_mesh()` and on a mesh naming the card twice (and, with more than
+    one card, over all of them), each against its unsharded entry point
+    at the shard seeds (or n reps of one whose rep i draws shard i's
+    shots), sparse and hybrid also two-sample against 'device-dem', with
+    their K1, K2, K6, K8 and K9 launches. Then, the
+    counts read, each kernel that ran against its plain version on the
+    path's own inputs, timed. Returns the `magic_mesh` JSON object and
+    the kernels' path-15 entries."""
+    import numpy as np
+    import torch
+
+    from qcss_tpu_torch import parallel as par
+    from qcss_tpu_torch.benchmarks import magic_bench
+    from qcss_tpu_torch.benchmarks import ftqc_programs as fp
+    from qcss_tpu_torch.benchmarks import measure_sparse_bench as msb
+    from qcss_tpu_torch.benchmarks.profiling import bound, cuda_ms
+    from qcss_tpu_torch.codes import families
+    from qcss_tpu_torch.decode import device_sparse as dsp
+    from qcss_tpu_torch.decode import device_sparse_cuda, device_uf_cuda
+    from qcss_tpu_torch.decode import device_uf as duf
+    from qcss_tpu_torch.decode import montecarlo
+    from qcss_tpu_torch.decode.bp import bp_phenomenological_error_rate
+    from qcss_tpu_torch.decode.mld import mld_logical_error_rate
+    from qcss_tpu_torch.decode.parallel_window import (
+        parallel_window_memory_rate,
+    )
+    from qcss_tpu_torch.decode.spacetime import detector_history
+    from qcss_tpu_torch.decode.sweep import error_rate_curve
+    from qcss_tpu_torch.experiments import concatenated, injection, resources
+    from qcss_tpu_torch.experiments.logical import LogicalProgram
+    from qcss_tpu_torch.experiments.memory import memory_experiment
+    from qcss_tpu_torch.experiments.memory_qldpc import (
+        qldpc_memory_experiment,
+    )
+    from qcss_tpu_torch.experiments.patches import schedule_memory_device
+    from qcss_tpu_torch.experiments.soft import soft_device_memory_rate
+    from qcss_tpu_torch.ftqc import engines, magic, rewrite_program
+    from qcss_tpu_torch.ops import cuda_gf2, gf2_torch
+    from qcss_tpu_torch.parallel import mesh as pm
+    from qcss_tpu_torch.sim import cuda_measure
+    from qcss_tpu_torch.sim import tableau as tb
+    from qcss_tpu_torch.sim.noise import NoiseModel
+
+    on_card = dev.type == "cuda"
+    out = {"card": smi}
+    seconds = {}
+    t_path = time.perf_counter()
+
+    def kernel_counts():
+        return {"K1": device_uf_cuda.launches,
+                "K2": device_sparse_cuda.launches,
+                "K6": cuda_gf2.launches["syndromes_packed"],
+                "K8": cuda_gf2.launches["decode_residual_packed"],
+                "K9": cuda_measure.launches}
+
+    def zero_counts():
+        device_uf_cuda.launches = device_uf_cuda.chunk_launches = 0
+        device_sparse_cuda.launches = 0
+        for k in cuda_gf2.launches:
+            cuda_gf2.launches[k] = 0
+        cuda_measure.launches = 0
+
+    def since(before):
+        now = kernel_counts()
+        return {k: now[k] - before[k] for k in now}
+
+    zero_counts()
+
+    # -- (a) the distillation map
+    t_part = time.perf_counter()
+    p_in = MAGIC_P_IN
+    cascade = magic.distill_cascade(p_in, 3)
+    lead = cascade[0]["p_out"] / (35 * p_in ** 3)
+    log(f"path 15 (a) distill_cascade({p_in}, 3): p_out "
+        + " / ".join(f"{lv['p_out']:.6e}" for lv in cascade)
+        + f", raw cost " + " / ".join(f"{lv['raw_cost']:.2f}"
+                                      for lv in cascade)
+        + f"; level 1 over 35 p^3 = {lead:.4f}")
+    if abs(lead - 1) > 20 * p_in:
+        raise RuntimeError(f"distill_cascade's first level is not 35 p^3 "
+                           f"(ratio {lead})")
+    exact = magic.distill_exact(p_in)
+    before = kernel_counts()
+    bench = {r["tier"] if r["tier"] != "exact" else f"exact{i}": r
+             for i, r in enumerate(magic_bench.main(
+                 ["--device", str(dev)] + list(MAGIC_BENCH_ARGS)))}
+    out["magic_bench"] = bench
+    out["magic_bench_launches"] = since(before)
+    mc = bench["mc"]
+    ok_a, spread_a = _in_interval(mc["accepted"], mc["samples"],
+                                  exact["p_accept"])
+    bad = round(mc["p_out"] * mc["accepted"])
+    ok_o, spread_o = _in_interval(bad, mc["accepted"], exact["p_out"])
+    log(f"path 15 (a) distill_mc B={mc['samples']}: p_accept "
+        f"{mc['p_accept']:.6f} (exact {exact['p_accept']:.6f} +- "
+        f"{spread_a:.6f}), p_out {mc['p_out']:.4e} ({bad} of "
+        f"{mc['accepted']}; exact {exact['p_out']:.4e} +- {spread_o:.2e}); "
+        f"{mc['samples_per_sec']:.4e} samples/s ({mc['sec']:.4f} s a call; "
+        f"{smi})")
+    if not (ok_a and ok_o):
+        raise RuntimeError("distill_mc outside the exact map's 99.9% "
+                           "intervals")
+    cc = bench["circuit"]
+    log(f"path 15 (a) distill_circuit at p_clifford={cc['p_clifford']} "
+        f"B={cc['samples']}: p_accept {cc['p_accept']:.6f}, p_out "
+        f"{cc['p_out']:.4e} ({cc['floor_over_exact']:.3f} x the exact "
+        f"map's), {cc['samples_per_sec']:.4e} samples/s ({cc['sec']:.4f} s "
+        f"a call; {smi})")
+    if not (0 < cc["p_accept"] < 1 and math.isfinite(cc["p_out"])):
+        raise RuntimeError(f"distill_circuit's noisy row is not sane: {cc}")
+    rm15 = families.reed_muller_15()
+    n15 = rm15.n
+    idx = np.arange(1 << n15)
+    pats = ((idx[:, None] >> np.arange(n15)) & 1).astype(np.uint8)
+    ex = magic.distill_circuit(NoiseModel(), 0.0, len(pats), inject=pats,
+                               return_samples=True, device=dev)
+    h1 = np.asarray(rm15.parity_check_c1, np.int64)
+    xbar = np.asarray(rm15.x_operator_matrix()[0], np.int64)
+    acc_host = ~((pats.astype(np.int64) @ h1.T) & 1).any(axis=1)
+    err_host = ((pats.astype(np.int64) @ xbar) & 1) == 1
+    n_bad = int((ex["accept"] != acc_host).sum()
+                + (ex["error"] != err_host).sum())
+    log(f"path 15 (a) all 2^{n15} injection patterns, quiet: "
+        f"{ex['accepted']} accepted, {int(ex['error'][ex['accept']].sum())} "
+        f"of them erroneous; {n_bad} bits differ from the host's coset "
+        f"membership")
+    if n_bad:
+        raise RuntimeError("distill_circuit(inject=...) disagrees with the "
+                           "coset membership")
+    t0 = time.perf_counter()
+    quiet = magic.distill_circuit(NoiseModel(), p_in, MAGIC_CIRCUIT_BATCH,
+                                  seed=3, device=dev)
+    quiet["samples_per_sec"] = MAGIC_CIRCUIT_BATCH / (time.perf_counter()
+                                                      - t0)
+    ok_a, spread_a = _in_interval(quiet["accepted"], quiet["samples"],
+                                  exact["p_accept"])
+    bad = round(quiet["p_out"] * quiet["accepted"])
+    ok_o, spread_o = _in_interval(bad, quiet["accepted"], exact["p_out"])
+    log(f"path 15 (a) distill_circuit quiet B={quiet['samples']}: p_accept "
+        f"{quiet['p_accept']:.6f} (+- {spread_a:.6f} of the exact map), "
+        f"p_out {quiet['p_out']:.4e} ({bad} shots; +- {spread_o:.2e}); "
+        f"{quiet['samples_per_sec']:.4e} samples/s (one call; {smi})")
+    if not (ok_a and ok_o):
+        raise RuntimeError("the quiet circuit tier is outside the exact "
+                           "map's 99.9% intervals")
+    out["distill"] = {"cascade": cascade, "exhaustive_accepted":
+                      ex["accepted"], "quiet": quiet}
+    seconds["a_magic"] = time.perf_counter() - t_part
+
+    # -- (b) injection: K8 and K6 once each a sector decode
+    t_part = time.perf_counter()
+    steane = families.steane()
+    inj = {}
+
+    def injected(label, noise, p_t, **kw):
+        before = kernel_counts()
+        t0 = time.perf_counter()
+        r = injection.magic_injection_experiment(
+            steane, noise, p_t, MAGIC_CIRCUIT_BATCH, device=dev, **kw)
+        r["samples_per_sec"] = MAGIC_CIRCUIT_BATCH / (time.perf_counter()
+                                                      - t0)
+        r["launches"] = since(before)
+        inj[label] = {k: v for k, v in r.items()
+                      if k not in ("accept", "log_x", "log_z")}
+        log(f"path 15 (b) injection {label} B={r['samples']}: p_accept "
+            f"{r['p_accept']:.6f}, p_x {r['p_x']:.3e}, p_y {r['p_y']:.3e}, "
+            f"p_z {r['p_z']:.4e}, eps {r['eps']:.4e}; "
+            f"{r['samples_per_sec']:.4e} samples/s (one call; {smi}); "
+            f"launches {r['launches']}")
+        if on_card and (r["launches"]["K8"] != 2
+                        or r["launches"]["K6"] != 2):
+            raise RuntimeError(f"injection {label}: K8 and K6 must launch "
+                               f"once a sector decode, got {r['launches']}")
+        return r
+
+    p_t = MAGIC_P_CLIFFORD * 10
+    r = injected("quiet", NoiseModel(), p_t, seed=2)
+    ok, spread = _in_interval(round(r["p_z"] * r["samples"]), r["samples"],
+                              p_t)
+    if r["p_accept"] != 1.0 or r["p_x"] or r["p_y"] or not ok \
+            or r["eps"] != r["p_z"]:
+        raise RuntimeError(f"quiet injection: p_accept 1, no X or Y and "
+                           f"eps = p_z within {spread:.2e} of p_t expected")
+    r = injected("t_fault", NoiseModel(), 1.0, seed=3)
+    if (r["p_accept"], r["p_z"], r["p_x"], r["p_y"]) != (1.0, 1.0, 0.0, 0.0):
+        raise RuntimeError("a certain T fault must be Z̄ on every shot")
+    p_c = MAGIC_NOISY_INJECTION
+    noisy = NoiseModel(p_gate1=p_c, p_gate2=p_c, p_meas=p_c, p_reset=p_c)
+    r = injected("noisy", noisy, 0.0, seed=4, return_samples=True)
+    lx, lz = r["log_x"], r["log_z"]
+    raw_eps = ((lx & ~lz).mean() + (lx & lz).mean()) / 2 + (lz & ~lx).mean()
+    inj["noisy"]["raw_eps"] = float(raw_eps)
+    log(f"path 15 (b) injection noisy (p={p_c} everywhere): postselected "
+        f"eps {r['eps']:.4e} against {raw_eps:.4e} unconditioned")
+    if not (r["p_accept"] < 1.0 and r["eps"] < raw_eps):
+        raise RuntimeError("postselection must clean the Clifford noise")
+    fac_noise = NoiseModel(p_gate1=MAGIC_P_CLIFFORD, p_gate2=MAGIC_P_CLIFFORD,
+                           p_meas=MAGIC_P_CLIFFORD, p_reset=MAGIC_P_CLIFFORD)
+    before = kernel_counts()
+    fac = injection.factory_report(steane, fac_noise, p_t, levels=3,
+                                   batch=MAGIC_CIRCUIT_BATCH, seed=7,
+                                   device=dev)
+    fac_launches = since(before)
+    if fac["injection"]["eps"] != bench["factory"]["inject_eps"] or \
+            fac["p_out"] != bench["factory"]["p_out"]:
+        raise RuntimeError("factory_report differs from magic_bench's "
+                           "factory row at the same seed")
+    t_prog = lambda d: LogicalProgram(d, 2).cnot(0, 1).t(1)  # noqa: E731
+    fails = {d: t_prog(d).run(MAGIC_REPORT_P, batch=MAGIC_REPORT_BATCH,
+                              seed=1, decoder="host",
+                              device=dev)["word_fail"] for d in (3, 5)}
+    rep = resources.logical_resource_report(
+        t_prog, MAGIC_REPORT_P, target=1.5 * fails[5], fails=fails,
+        factory=fac)
+    out["injection"] = inj
+    out["factory"] = {"eps": fac["injection"]["eps"],
+                      "p_accept": fac["injection"]["p_accept"],
+                      "p_out": fac["p_out"],
+                      "injections_per_state": fac["injections_per_state"],
+                      "launches": fac_launches}
+    out["resource_report"] = rep
+    log(f"path 15 (b) factory_report (Steane, p={MAGIC_P_CLIFFORD}, p_t="
+        f"{p_t}, 3 levels, B={MAGIC_CIRCUIT_BATCH}): eps "
+        f"{fac['injection']['eps']:.4e}, p_out {fac['p_out']:.3e}, "
+        f"{fac['injections_per_state']:.2f} injections a state; launches "
+        f"{fac_launches}; logical_resource_report of CNOT(0,1); T(1) "
+        f"at p=q={MAGIC_REPORT_P} (host decode, B={MAGIC_REPORT_BATCH}, "
+        f"word failures {fails}): d* {rep['d_star']}, magic "
+        f"{rep['magic']}")
+    if rep["magic"]["t_count"] != 1:
+        raise RuntimeError("the priced program has one T")
+    seconds["b_injection"] = time.perf_counter() - t_part
+
+    # -- (c) the mesh: every pipeline on one card, on the card named twice
+    #    and, with more than one card, over all of them; each held against
+    #    its unsharded port body at the shard seeds
+    t_part = time.perf_counter()
+    S = MESH_SEED
+    # make_mesh() takes every card; "one card" is make_mesh(1)
+    n_cards = torch.cuda.device_count() if on_card else 0
+    meshes = {"one card": (par.make_mesh(1) if on_card
+                           else par.make_mesh(devices=[dev]), 1),
+              "card twice (sharding logic, not speed)": (
+                  par.make_mesh(devices=[dev, dev]), 2)}
+    if n_cards > 1:
+        meshes["all cards"] = (par.make_mesh(), n_cards)
+    shard_seeds = [pm.shard_seed(S, i) for i in range(
+        max(n for _, n in meshes.values()))]
+    sf = families.rotated_surface
+    code7 = sf(MESH_FRAME[0])
+    frame_noise = NoiseModel(p_gate2=MESH_FRAME[3], p_meas=MESH_FRAME[4])
+    bb72 = families.bb72()
+    qldpc_noise = NoiseModel(p_gate2=MESH_QLDPC[2], p_meas=MESH_QLDPC[2])
+    program = LogicalProgram(3, 2).cnot(0, 1).build()
+    mag_noise = NoiseModel(p_gate1=MAGIC_P_CLIFFORD,
+                           p_gate2=MAGIC_P_CLIFFORD, p_meas=MAGIC_P_CLIFFORD,
+                           p_reset=MAGIC_P_CLIFFORD)
+    enc = rewrite_program(fp.x_program(), steane, tableau="packed",
+                          noise=NoiseModel(p_meas=1e-2, p_reset=1e-2),
+                          device=dev)
+    sfm = {}
+
+    def frame_memory(mesh):
+        key = tuple(str(d) for d in mesh.devices)
+        if key not in sfm:
+            sfm[key] = par.ShardedFrameMemory(code7, frame_noise, mesh)
+        return sfm[key]
+
+    d7, r7, b7 = MESH_FRAME[:3]
+    pw_d, pw_r, pw_b, pw_p = MESH_PW
+    pw_kw = dict(rounds=pw_r, p=pw_p, q=pw_p, core=pw_d,
+                 buf=int(1.5 * pw_d))
+    f_keys = ("x_fail", "z_fail", "word_fail")
+    # name: (batch a shard, sharded(mesh, batch) -> counts,
+    #        unsharded(seed, batch) -> counts, kernels expected to launch);
+    # an unsharded entry of None is in `by_reps`: an entry point whose rep
+    # i at seed S draws shard i's shots, run for n reps
+    pipelines = {
+        "sharded_mc_step": (
+            MESH_MC[0],
+            lambda m, b: {k: int(v) for k, v in par.sharded_mc_step(
+                steane, m, S, b, MESH_MC[1]).items()},
+            lambda s, b: _counts_of(montecarlo.logical_error_rate(
+                steane, MESH_MC[1], samples=b, batch=b, seed=s,
+                device=dev), b, f_keys),
+            ("K6", "K8")),
+        "sharded_logical_error_rate": (
+            MESH_LER[1],
+            lambda m, b: _counts_of(par.sharded_logical_error_rate(
+                steane, MESH_MC[1], mesh=m, samples=MESH_LER[0] // MESH_LER[1]
+                * b, batch=b, seed=S), MESH_LER[0] // MESH_LER[1] * b,
+                f_keys),
+            None, ("K6", "K8")),
+        "sharded_ftqc_run": (
+            MESH_FTQC_BATCH,
+            lambda m, b: {k: v.cpu().numpy() for k, v in
+                          par.sharded_ftqc_run(enc, m, b, S).items()},
+            lambda s, b: enc.on(dev).run(b, s), ("K9",)),
+        "ShardedFrameMemory.sample": (
+            b7,
+            lambda m, b: dict(zip(("syns", "word"), (
+                t.cpu().numpy() for t in frame_memory(m).sample(S, b, r7)))),
+            lambda s, b: dict(zip(("syns", "word"), (
+                t.cpu().numpy() for t in frame_memory(
+                    meshes["one card"][0])._sampler(dev, s, b, r7)(
+                        frame_memory(meshes["one card"][0])._extract,
+                        code7.raw_parity_check_c2.shape[0])))), ()),
+        "ShardedFrameMemory.error_rate": (
+            b7,
+            lambda m, b: _counts_of(frame_memory(m).error_rate(
+                rounds=r7, batch=b, seed=S), b,
+                ("logical_fail", "residual_syndrome")),
+            lambda s, b: _counts_of(memory_experiment(
+                code7, rounds=r7, noise=frame_noise, batch=b, seed=s,
+                decoder="uf", engine="frames", device=dev), b,
+                ("logical_fail", "residual_syndrome")), ()),
+        **{f"ShardedFrameMemory.fused_error_rate({dec})": (
+            b7,
+            lambda m, b, dec=dec: _counts_of(frame_memory(m).fused_error_rate(
+                rounds=r7, batch=b, seed=S, decoder=dec, d_max=D_MAX), b,
+                ("logical_fail",)),
+            (lambda s, b: _counts_of(memory_experiment(
+                code7, rounds=r7, noise=frame_noise, batch=b, seed=s,
+                decoder="device-dem", engine="frames", device=dev), b,
+                ("logical_fail",))) if dec == "dense" else
+            (lambda s, b, dec=dec: {"logical_fail": int(frame_memory(
+                meshes["one card"][0]).fused_shard(
+                    dev, s, b, r7, "dem", dec, D_MAX)[0])}),
+            {"dense": ("K1",), "sparse": ("K2",), "hybrid": ("K2",)}[dec])
+            for dec in ("dense", "sparse", "hybrid")},
+        "sharded_bp_memory": (
+            MESH_BP[1],
+            lambda m, b: _counts_of(par.sharded_bp_memory(
+                bb72, m, rounds=MESH_BP[0], p=MESH_BP[2], q=MESH_BP[2],
+                batch=b, seed=S, iters=MESH_BP[3]), b,
+                ("x_fail", "bp_unconverged")),
+            lambda s, b: (lambda r: {
+                "x_fail": round(r["x_fail"] * b),
+                "bp_unconverged": round((1 - r["bp_converged"]) * b)})(
+                bp_phenomenological_error_rate(
+                    bb72, MESH_BP[0], MESH_BP[2], MESH_BP[2], batch=b,
+                    seed=s, iters=MESH_BP[3], osd=False, device=dev)), ()),
+        "sharded_soft_memory": (
+            MESH_SOFT[2],
+            lambda m, b: _counts_of(par.sharded_soft_memory(
+                sf(MESH_SOFT[0]), m, rounds=MESH_SOFT[1], p=MESH_SOFT[3],
+                sigma=MESH_SOFT[4], batch=b, seed=S), b, ("logical_fail",)),
+            None, ()),
+        "sharded_qldpc_circuit_memory": (
+            MESH_QLDPC[1],
+            lambda m, b: _counts_of(par.sharded_qldpc_circuit_memory(
+                bb72, m, rounds=MESH_QLDPC[0], noise=qldpc_noise, batch=b,
+                seed=S, iters=MESH_QLDPC[3]), b,
+                ("x_fail", "bp_unconverged")),
+            lambda s, b: (lambda r: {
+                "x_fail": round(r["x_fail"] * b),
+                "bp_unconverged": round((1 - r["bp_converged_z"]) * b)})(
+                qldpc_memory_experiment(
+                    bb72, rounds=MESH_QLDPC[0], noise=qldpc_noise, batch=b,
+                    seed=s, iters=MESH_QLDPC[3], osd=False, sectors="z",
+                    device=dev)), ()),
+        "sharded_magic_factory": (
+            MAGIC_CIRCUIT_BATCH,
+            lambda m, b: (lambda r: {"accepted": r["accepted"],
+                                     "bad": round(r["p_out"]
+                                                  * r["accepted"])})(
+                par.sharded_magic_factory(m, mag_noise, p_in, b, seed=S)),
+            lambda s, b: (lambda r: {"accepted": r["accepted"],
+                                     "bad": round(r["p_out"]
+                                                  * r["accepted"])})(
+                magic.distill_circuit(mag_noise, p_in, b, seed=s,
+                                      device=dev)), ()),
+        "sharded_logical_program": (
+            MESH_PROGRAM[0],
+            lambda m, b: _counts_of(par.sharded_logical_program(
+                program, m, p=MESH_PROGRAM[1], batch=b, seed=S), b,
+                ("word_fail", "z0_fail", "z1_fail")),
+            None, ()),
+        "sharded_two_level_memory": (
+            MESH_TWO_LEVEL[4],
+            lambda m, b: _counts_of(par.sharded_two_level_memory(
+                *MESH_TWO_LEVEL[:3], m, p=MESH_TWO_LEVEL[3], batch=b,
+                seed=S), b, ("word_fail_l1", "word_fail_l2")),
+            None, ("K1",)),
+        "sharded_mld_memory": (
+            MESH_MLD[1],
+            lambda m, b: _counts_of(par.sharded_mld_memory(
+                steane, m, p=MESH_MLD[0], batch=b, seed=S), b,
+                ("word_fail",)),
+            lambda s, b: {"word_fail": round(mld_logical_error_rate(
+                steane, MESH_MLD[0], batch=b, seed=s,
+                device=dev)["word_fail_ml"] * b)}, ()),
+        "sharded_parallel_window_memory": (
+            pw_b,
+            lambda m, b: _counts_of(par.sharded_parallel_window_memory(
+                sf(pw_d), m, batch=b, seed=S, **pw_kw), b,
+                ("logical_fail",)),
+            lambda s, b: _counts_of(parallel_window_memory_rate(
+                sf(pw_d).raw_parity_check_c2, sf(pw_d).z_operator_matrix(),
+                pw_p, pw_p, rounds=pw_r, batch=b, core=pw_d,
+                buf=int(1.5 * pw_d), seed=s, device=dev), b,
+                ("logical_fail",)), ("K1",)),
+    }
+
+    by_reps = {
+        "sharded_soft_memory": lambda n, b: _counts_of(
+            soft_device_memory_rate(
+                sf(MESH_SOFT[0]), MESH_SOFT[3], MESH_SOFT[4],
+                rounds=MESH_SOFT[1], batch=b, reps=n, seed=S, device=dev),
+            n * b, ("logical_fail",)),
+        "sharded_logical_program": lambda n, b: (lambda r: {
+            "word_fail": round(r["word_fail"] * n * b),
+            "z0_fail": round(r["obs0_fail"] * n * b),
+            "z1_fail": round(r["obs1_fail"] * n * b)})(
+            schedule_memory_device(program, MESH_PROGRAM[1], batch=b,
+                                   reps=n, seed=S, device=dev)),
+        "sharded_two_level_memory": lambda n, b: _counts_of(
+            concatenated._device_two_level(
+                *MESH_TWO_LEVEL[:4], None, batch=b, seed=S, reps=n,
+                device=dev), n * b, ("word_fail_l1", "word_fail_l2")),
+    }
+
+    def equal(a: dict, b: dict) -> bool:
+        return set(a) == set(b) and all(
+            np.array_equal(np.asarray(a[k]), np.asarray(b[k])) for k in a)
+
+    rows, launches = {}, {}
+    # K9: catch a state the sharded FT run measures
+    measure = engines.PackedEngine.measure_block
+    seen = []
+
+    def spy(self, tab, b, generator=None, *, rand_bits=None):
+        seen[:] = [(tab, self.block_qubits(b))]
+        return measure(self, tab, b, generator, rand_bits=rand_bits)
+
+    body_cache = {}
+    for name, (local, sharded, unsharded, expect) in pipelines.items():
+        row = {"local_batch": local}
+        launches[name] = {}
+        for label, (mesh, n) in meshes.items():
+            before = kernel_counts()
+            t0 = time.perf_counter()
+            engines.PackedEngine.measure_block = spy
+            try:
+                got = sharded(mesh, n * local)
+            finally:
+                engines.PackedEngine.measure_block = measure
+            wall = time.perf_counter() - t0
+            launches[name][label] = since(before)
+            # the unsharded port bodies at shard_seed(S, i), i < n
+            if name == "sharded_logical_error_rate":
+                n_rounds = MESH_LER[0] // MESH_LER[1]
+                parts = [_counts_of(montecarlo.logical_error_rate(
+                    steane, MESH_MC[1], samples=local, batch=local,
+                    seed=pm.shard_seed(pm.shard_seed(S, r), i), device=dev),
+                    local, f_keys) for r in range(n_rounds)
+                    for i in range(n)]
+                want = _summed(*parts)
+            elif name in by_reps:
+                want = by_reps[name](n, local)
+            else:
+                parts = []
+                for i in range(n):
+                    ck = (name, shard_seeds[i])
+                    if ck not in body_cache:
+                        body_cache[ck] = unsharded(shard_seeds[i], local)
+                    parts.append(body_cache[ck])
+                if name == "sharded_ftqc_run":
+                    want = {k: np.concatenate([p[k] for p in parts])
+                            for k in parts[0]}
+                elif name == "ShardedFrameMemory.sample":
+                    want = {"syns": np.concatenate([p["syns"] for p in parts],
+                                                   axis=1),
+                            "word": np.concatenate([p["word"] for p in parts])}
+                else:
+                    want = _summed(*parts)
+            same = equal(got, want)
+            shown = ({k: list(v.shape) for k, v in got.items()}
+                     if name in ("sharded_ftqc_run",
+                                 "ShardedFrameMemory.sample") else got)
+            row[label] = {"shards": n, "batch": n * local, "wall_s": wall,
+                          "equal_to_unsharded": same, "result": shown,
+                          "launches": launches[name][label]}
+            log(f"path 15 (c) {name} on {label} ({n} shard(s) x {local}): "
+                f"{shown}; == the unsharded bodies at the shard seeds: "
+                f"{same}; {wall:.3f} s; launches {launches[name][label]}")
+            if not same:
+                raise RuntimeError(f"{name} on {label} differs from its "
+                                   f"unsharded port body: {got} vs {want}")
+            if on_card:
+                missing = [k for k in expect
+                           if launches[name][label][k] <= 0]
+                if missing:
+                    raise RuntimeError(f"{name} on {label}: {missing} never "
+                                       f"launched")
+        rows[name] = row
+    # the sparse kernel's decoders have no unsharded entry point: beside
+    # their shards' bodies, hold them against the dense decoder's entry
+    # point (`memory_experiment(decoder='device-dem')`, the dense row's
+    # unsharded runs) on the same shots, two-sample 99.9%
+    dense = rows["ShardedFrameMemory.fused_error_rate(dense)"]
+    for dec in ("sparse", "hybrid"):
+        row = rows[f"ShardedFrameMemory.fused_error_rate({dec})"]
+        for label in meshes:
+            k1 = row[label]["result"]["logical_fail"]
+            k2 = dense[label]["result"]["logical_fail"]
+            n_shots = row[label]["batch"]
+            ok = _two_sample(k1, k2, n_shots)
+            row[label]["two_sample_vs_device_dem"] = {
+                "failures": k1, "device_dem_failures": k2, "within": ok}
+            log(f"path 15 (c) fused_error_rate({dec}) on {label}: {k1} "
+                f"failures of {n_shots} against memory_experiment("
+                f"decoder='device-dem')'s {k2} on the same shots: within "
+                f"two-sample 99.9%: {ok}")
+            if not ok:
+                raise RuntimeError(f"fused_error_rate({dec}) on {label} "
+                                   f"disagrees with device-dem: {k1} vs {k2}")
+    curve = error_rate_curve(steane, [MESH_MC[1], 2 * MESH_MC[1]],
+                             samples_per_point=MESH_LER[0],
+                             batch=MESH_LER[1], seed=S,
+                             mesh=meshes["one card"][0])
+    want = [{"p": p, **par.sharded_logical_error_rate(
+        steane, p, mesh=meshes["one card"][0], samples=MESH_LER[0],
+        batch=MESH_LER[1], seed=S + i)}
+        for i, p in enumerate([MESH_MC[1], 2 * MESH_MC[1]])]
+    log(f"path 15 (c) error_rate_curve(mesh=one card): "
+        f"{[(pt['p'], pt['word_fail']) for pt in curve]}; == "
+        f"sharded_logical_error_rate's points: {curve == want}")
+    if curve != want:
+        raise RuntimeError("error_rate_curve(mesh=) differs from "
+                           "sharded_logical_error_rate")
+    out["mesh"] = rows
+    out["error_rate_curve"] = curve
+    seconds["c_mesh"] = time.perf_counter() - t_part
+    out["launches"] = {"a_magic_bench": out.pop("magic_bench_launches"),
+                       "b_injection": {k: v["launches"]
+                                       for k, v in inj.items()},
+                       "b_factory": fac_launches, "c_mesh": launches}
+    total = kernel_counts()
+    out["launches_total"] = total
+    out["seconds"] = {**seconds, "path": time.perf_counter() - t_path}
+    log(f"path 15 launches over the path: {total}; seconds {out['seconds']} "
+        f"({smi})")
+    if not on_card:
+        return out, {}
+    if min(total[k] for k in ("K1", "K2", "K6", "K8", "K9")) <= 0:
+        raise RuntimeError(f"a kernel of path 15 never launched: {total}")
+
+    # -- the kernels that ran, against their plain versions on the path's
+    #    own inputs (these launches are not the path's)
+    kernels = {}
+    mesh1 = meshes["one card"][0]
+    sfm1 = frame_memory(mesh1)
+    syns, word = sfm1._sampler(dev, shard_seeds[0], b7, r7)(
+        sfm1._extract, code7.raw_parity_check_c2.shape[0])
+    raw_t = torch.as_tensor(np.asarray(code7.raw_parity_check_c2, np.uint8),
+                            device=dev)
+    dets = detector_history(syns, gf2_torch.syndromes_dense(word, raw_t))
+    graph = sfm1._graph(r7, True)
+    dg = duf.build_device_graph(graph).to(dev)
+    defect = duf.stencil_defect(dg, dets)
+    k1_err = k1_equal(duf, device_uf_cuda, dg, defect,
+                      "on path 15's d=7 DEM rows")[0]
+    Bk, Vk = defect.shape
+    label = (f"B={Bk} V={Vk} O={len(dg.stencil.deltas)} NC="
+             f"{len(dg.stencil.chunks)} (ShardedFrameMemory d={d7} R={r7}, "
+             f"shard 0)")
+    plan, need, bnd = k1_report(label, device_uf_cuda, duf, dg, defect,
+                                int_ops_per_s)
+    kernels["K1"] = {
+        "shape": label, "launches": total["K1"],
+        "by_pipeline": {k: sum(v[m]["K1"] for m in v)
+                        for k, v in launches.items()},
+        "max_abs_err": k1_err,
+        "ms": cuda_ms(lambda: device_uf_cuda.stencil_full(dg, defect), 20),
+        "plain_ms": cuda_ms(lambda: duf._stencil_plain(dg, defect), 2),
+        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+        "plan": plan, "work": need}
+    tables = dsp._tables_to(dsp.build_sparse_tables(graph), dev)
+    k2 = msb.k2_row(tables, dets, 20, int_ops_per_s, d_max=D_MAX)
+    kernels["K2"] = {
+        "shape": f"B={Bk} V={dets.shape[1]} d_max={D_MAX} "
+                 f"(ShardedFrameMemory d={d7} R={r7}, shard 0)",
+        "launches": total["K2"],
+        "by_pipeline": {k: sum(v[m]["K2"] for m in v)
+                        for k, v in launches.items()},
+        "max_abs_err": 0,
+        **{k: k2[k] for k in ("ms", "host_ms", "hot_ms", "cold_ms",
+                              "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "defects_per_shot", "plan")}}
+    # K8 then K6: the injection's final decode at its shape (Steane,
+    # B=2^20, one sector), on frames with errors at the noisy run's scale
+    # and on the Monte Carlo's errors (B=2^22)
+    x_sec, z_sec = injection.final_sectors(steane, dev)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    for key, (bits, sec, where) in {
+            "injection": ((torch.rand((MAGIC_CIRCUIT_BATCH, steane.n),
+                                      generator=gen, device=dev) < 0.05
+                           ).to(torch.uint8), z_sec,
+                          f"Steane B={MAGIC_CIRCUIT_BATCH}, Z frame"),
+            "mc": (montecarlo.sample_depolarizing(
+                torch.Generator(device=dev).manual_seed(shard_seeds[0]),
+                MESH_MC[0], steane.n, MESH_MC[1])[0],
+                montecarlo.packed_sectors(steane, dev)[0],
+                f"Steane B={MESH_MC[0]}, X errors of sharded_mc_step's "
+                f"shard 0")}.items():
+        e = gf2_torch.words32(gf2_torch.pack_bits(bits))
+        Be, We = e.shape
+        R = sec.checks.shape[0]
+        k8 = lambda: cuda_gf2.decode_residual_packed_cuda(e, sec.checks,
+                                                         sec.lut)
+        k8p = lambda: cuda_gf2.decode_residual_packed_plain(e, sec.checks,
+                                                           sec.lut)
+        resid = k8()
+        err8 = max_abs_words(resid, k8p())
+        k6 = lambda: cuda_gf2.syndromes_packed_cuda(resid, sec.logicals)
+        k6p = lambda: cuda_gf2.syndromes_packed_plain(resid, sec.logicals)
+        err6 = max_abs(k6(), k6p())
+        if err8 or err6:
+            raise RuntimeError(f"K8/K6 disagree with their plain versions "
+                               f"on path 15's {where} (max abs err {err8}, "
+                               f"{err6})")
+        K = sec.logicals.shape[0]
+        b8 = bound(4 * (2 * Be * We + R * We + sec.lut.numel()),
+                   Be * (R * (We + 3) + We), int_ops_per_s)
+        b6 = bound(4 * Be * We + 4 * K * We + Be * K, Be * K * (We + 2),
+                   int_ops_per_s)
+        for kname, fn, fp_, b_, err, launched in (
+                ("K8", k8, k8p, b8, err8, total["K8"]),
+                ("K6", k6, k6p, b6, err6, total["K6"])):
+            entry = kernels.setdefault(kname, {
+                "launches": launched,
+                "by_pipeline": {k: sum(v[m][kname] for m in v)
+                                for k, v in launches.items()},
+                "by_part": {"a_magic_bench": out["launches"]
+                            ["a_magic_bench"][kname],
+                            "b_injection": sum(v[kname] for v in
+                                               out["launches"]["b_injection"]
+                                               .values()),
+                            "b_factory": fac_launches[kname]},
+                "max_abs_err": 0})
+            entry[key] = {"shape": f"B={Be} W={We} R={R if kname == 'K8' else K} "
+                                   f"({where})",
+                          "max_abs_err": err, "ms": cuda_ms(fn, 20),
+                          "plain_ms": cuda_ms(fp_, 3), "bound_ms": b_[0],
+                          "bound_by": b_[1], "library_ms": None}
+            log(f"{kname} at path 15's {where}: == plain; "
+                f"{entry[key]['ms']:.4f} ms, plain "
+                f"{entry[key]['plain_ms']:.4f} ms, bound {b_[0]:.4f} ms "
+                f"({b_[1]})")
+    # K9 on the last block measurement the sharded FT run made
+    tab, qs = seen[0]
+    bits = tb.collapse_bits(torch.Generator(device=dev).manual_seed(15),
+                            tab.batch, len(qs))
+    row = msb.k9_row({"t": tab, "qubits": qs, "bits": bits,
+                      "branch": "path 15, sharded_ftqc_run"}, 20,
+                     int_ops_per_s)
+    kernels["K9"] = {
+        "shape": f"B={row['B']} n={row['n']} W={row['W']} M={row['M']} "
+                 f"(path 15, sharded_ftqc_run's last block measurement)",
+        "launches": total["K9"],
+        "by_pipeline": {k: sum(v[m]["K9"] for m in v)
+                        for k, v in launches.items()},
+        "max_abs_err": 0,
+        **{k: row[k] for k in ("ms", "host_ms", "hot_ms", "cold_ms",
+                               "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "plan")}}
+    log(f"K1 {kernels['K1']['ms']:.4f} ms (plain "
+        f"{kernels['K1']['plain_ms']:.3f}), K2 {k2['ms']:.4f} ms, K9 "
+        f"{row['ms']:.4f} ms at path 15's shapes: each == its plain version "
+        f"({smi})")
+    return out, kernels
 
 
 def k1_equal(duf, device_uf_cuda, dg, defect, where: str,
@@ -3321,6 +4079,12 @@ def main() -> int:
     #    benches; K9 in the 'packed' break-even runs)
     ftqc_rest, k9_rest = path14(dev, int_ops_per_s, smi)
 
+    # -- 8m. main path 15: magic states (the distillation map, magic_bench,
+    #    injection and the factory; K8 and K6 in the injection's decode) and
+    #    the twelve sharded pipelines on one card and on the card named
+    #    twice (K1, K2, K6, K8, K9 on their paths)
+    magic_mesh, mesh_kernels = path15(dev, int_ops_per_s, smi)
+
     # -- 9. kernel and plain-version times at the main paths' shapes
     defect_big = duf.stencil_defect(dg, dets_big)
     k1_ms = cuda_ms(lambda: device_uf_cuda.stencil_full(dg, defect_big), 20)
@@ -3585,9 +4349,11 @@ def main() -> int:
     print(json.dumps({"ftqc": ftqc}), flush=True)
     print(json.dumps({"ftqc_frames": ftqc_frames}), flush=True)
     print(json.dumps({"ftqc_rest": ftqc_rest}), flush=True)
+    print(json.dumps({"magic_mesh": magic_mesh}), flush=True)
     k9_entry["ftqc"] = k9_ftqc
     k9_entry["ftqc_frames"] = {"launches": ftqc_frames["k9_launches"]}
     k9_entry["ftqc_rest"] = k9_rest
+    k9_entry["magic_mesh"] = mesh_kernels["K9"]
     print(json.dumps({"kernels": [
         {"name": "uf_stencil_full", "route": "cuda",
          "source": "qcss_tpu_torch/csrc/uf_stencil_full.cu",
@@ -3625,7 +4391,8 @@ def main() -> int:
                             ("leakage", sideinfo["leakage"]["memory"]))
                         for arm, row in rows.items()}},
          "surgery": surgery_kernels["K1"],
-         "logical": logical_kernels["K1"]},
+         "logical": logical_kernels["K1"],
+         "magic_mesh": mesh_kernels["K1"]},
         {"name": "uf_stencil_prop", "route": "cuda",
          "source": "qcss_tpu_torch/csrc/uf_stencil_staged.cu",
          "replaces": "qcss_tpu/decode/device_uf_pallas.py:74",
@@ -3653,12 +4420,13 @@ def main() -> int:
              "defects_per_shot", "events_per_shot", "sweeps_per_shot",
              "plan")},
          "surgery": surgery_kernels["K2"],
-         "logical": logical_kernels["K2"]},
+         "logical": logical_kernels["K2"],
+         "magic_mesh": mesh_kernels["K2"]},
         {"name": "syndromes_packed", "route": "cuda",
          "source": "qcss_tpu_torch/csrc/gf2_packed.cu",
          "replaces": "qcss_tpu/ops/pallas_gf2.py:51",
          "launches": n_k6, "max_abs_err": k6_err, **times["K6"],
-         "library_note": lib_note},
+         "library_note": lib_note, "magic_mesh": mesh_kernels["K6"]},
         {"name": "syndromes_packed_t", "route": "cuda",
          "source": "qcss_tpu_torch/csrc/gf2_packed.cu",
          "replaces": "qcss_tpu/ops/pallas_gf2.py:107",
@@ -3667,7 +4435,8 @@ def main() -> int:
         {"name": "decode_residual_packed", "route": "cuda",
          "source": "qcss_tpu_torch/csrc/gf2_packed.cu",
          "replaces": "qcss_tpu/ops/pallas_gf2.py:156",
-         "launches": n_k8, "max_abs_err": k8_err, **times["K8"]},
+         "launches": n_k8, "max_abs_err": k8_err, **times["K8"],
+         "magic_mesh": mesh_kernels["K8"]},
         k9_entry,
     ]}), flush=True)
     print(smi, flush=True)

@@ -210,6 +210,31 @@ class MLDecoder:
         return flips.astype(np.uint8)
 
 
+def _ml_device_step(code, p: float, batch: int, device):
+    """The ML half of `mld_logical_error_rate` on ``device``:
+    ``step(generator)`` draws ``batch`` iid X-error words at ``p``, decodes
+    their syndromes with `MLDecoder.device_decode_fn` and returns (the
+    errors [batch, n] uint8, the word failures, a device scalar); nothing
+    is read back."""
+    dec = MLDecoder.for_code(code, p=p, device=device).device_decode_fn()
+    h_t = torch.as_tensor(np.asarray(code.parity_check_c2, np.uint8).T
+                          & 1, device=device)
+    lz_t = torch.as_tensor(np.asarray(code.z_operator_matrix(), np.uint8).T
+                           & 1, device=device)
+    n = code.n
+    llr = torch.full((batch, n), float(np.log(p / (1 - p))),
+                     dtype=torch.float32, device=device)
+
+    def step(gen):
+        errs = (torch.rand((batch, n), generator=gen, device=device) < p
+                ).to(torch.uint8)
+        flips = dec(gf2_torch.mod2_matmul(errs, h_t), llr)
+        true_par = gf2_torch.mod2_matmul(errs, lz_t)
+        return errs, (flips != true_par).any(dim=1).sum()
+
+    return step
+
+
 def mld_logical_error_rate(code, p: float, *, batch: int = 1 << 12,
                            seed: int = 0, device="cuda"):
     """Code-capacity X-sector word failure under exact ML decoding,
@@ -223,16 +248,11 @@ def mld_logical_error_rate(code, p: float, *, batch: int = 1 << 12,
     device = resolve_device(device)
     h = np.asarray(code.parity_check_c2, np.uint8)
     lz = np.asarray(code.z_operator_matrix(), np.uint8)
-    n = code.n
-    gen = torch.Generator(device=device).manual_seed(seed)
-    errs = (torch.rand((batch, n), generator=gen, device=device) < p
-            ).to(torch.uint8).cpu().numpy()
+    step = _ml_device_step(code, p, batch, device)
+    errs_t, fails = step(torch.Generator(device=device).manual_seed(seed))
+    errs = errs_t.cpu().numpy()
     syn = (errs @ h.T) & 1
-    true_par = (errs @ lz.T) & 1
-
-    ml = MLDecoder.for_code(code, p=p, device=device)
-    fail_ml = float(np.mean(np.any(
-        ml.decode_flips(syn) != true_par, axis=1)))
+    fail_ml = int(fails) / batch
 
     lut = code.device.lut_c2
     if lut is None:

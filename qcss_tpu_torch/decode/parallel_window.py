@@ -308,6 +308,31 @@ class ParallelWindowDecoder:
         return obs, conv_all
 
 
+def _parallel_window_step(h, logicals, p, q, *, rounds: int, batch: int,
+                          core: int, buf: int, weighted: bool, device):
+    """`parallel_window_memory_rate`'s pipeline on ``device``:
+    ``step(generator)`` samples ``batch`` streams
+    (`streaming.sample_phenomenological_stream`), decodes them with
+    `ParallelWindowDecoder.decode_tensors` and returns (failures, all
+    converged) as device scalars; nothing is read back."""
+    from qcss_tpu_torch.decode.streaming import sample_phenomenological_stream
+
+    h = np.asarray(h, np.uint8) & 1
+    logicals = np.atleast_2d(np.asarray(logicals, np.uint8) & 1)[:1]
+    pw = ParallelWindowDecoder(
+        h, logicals, core=core, buf=buf,
+        p_space=p if weighted else None, p_time=q if weighted else None,
+        device=device)
+
+    def step(gen):
+        dets, par = sample_phenomenological_stream(gen, p, q, batch, rounds,
+                                                   h, logicals)
+        obs, conv = pw.decode_tensors(dets)
+        return ((obs & 1).to(torch.uint8) != par[:, 0]).sum(), conv
+
+    return step
+
+
 def parallel_window_memory_rate(h, logicals, p, q, *, rounds: int,
                                 batch: int, core: int, buf: int,
                                 seed: int = 0, weighted: bool = True,
@@ -321,20 +346,11 @@ def parallel_window_memory_rate(h, logicals, p, q, *, rounds: int,
     (O(window) state, sequential windows); this one bounds LATENCY (the
     recorded stream decodes in O(1) launches). Returns
     dict(logical_fail, samples, rounds)."""
-    from qcss_tpu_torch.decode.streaming import sample_phenomenological_stream
-
     device = resolve_device(device)
-    h = np.asarray(h, np.uint8) & 1
-    logicals = np.atleast_2d(np.asarray(logicals, np.uint8) & 1)[:1]
-    pw = ParallelWindowDecoder(
-        h, logicals, core=core, buf=buf,
-        p_space=p if weighted else None, p_time=q if weighted else None,
-        device=device)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    dets, par = sample_phenomenological_stream(gen, p, q, batch, rounds, h,
-                                               logicals)
-    obs, conv = pw.decode_tensors(dets)
-    fail = ((obs & 1).to(torch.uint8) != par[:, 0]).sum()
+    step = _parallel_window_step(h, logicals, p, q, rounds=rounds,
+                                 batch=batch, core=core, buf=buf,
+                                 weighted=weighted, device=device)
+    fail, conv = step(torch.Generator(device=device).manual_seed(seed))
     fails, conv = torch.stack([fail, conv.to(fail.dtype)]).tolist()
     if not conv:
         raise RuntimeError("growth cap hit")

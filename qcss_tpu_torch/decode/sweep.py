@@ -2,7 +2,8 @@
 (PyTorch port of `qcss_tpu.decode.sweep`).
 
 Completed points checkpoint to a JSON-lines file and a restarted sweep
-resumes after the last finished point.
+resumes after the last finished point; with a mesh, each point's sampling
+shards over its devices (`parallel.sharded_logical_error_rate`).
 """
 
 from __future__ import annotations
@@ -22,12 +23,9 @@ def error_rate_curve(code, ps, *, samples_per_point: int = 1 << 20,
     Returns a list of point dicts ``{"p": ..., "x_fail": ..., "z_fail":
     ..., "word_fail": ..., "samples": ...}``. With ``checkpoint_path``,
     each completed point is appended to the file and already-present
-    points are not recomputed.
+    points are not recomputed. With ``mesh`` (`parallel.make_mesh`),
+    sampling shards over the mesh's devices and ``device`` is unused.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded sweeps are not ported yet (ROADMAP.md, queue 1, "
-            "item 7: torch.distributed)")
     done: dict[float, dict] = {}
     if checkpoint_path and os.path.exists(checkpoint_path):
         with open(checkpoint_path) as f:
@@ -43,8 +41,16 @@ def error_rate_curve(code, ps, *, samples_per_point: int = 1 << 20,
         if p in done:
             results.append(done[p])
             continue
-        rates = logical_error_rate(code, p, samples=samples_per_point,
-                                   batch=batch, seed=seed + i, device=device)
+        if mesh is not None:
+            from qcss_tpu_torch.parallel import sharded_logical_error_rate
+
+            rates = sharded_logical_error_rate(
+                code, p, mesh=mesh, samples=samples_per_point, batch=batch,
+                seed=seed + i)
+        else:
+            rates = logical_error_rate(code, p, samples=samples_per_point,
+                                       batch=batch, seed=seed + i,
+                                       device=device)
         point = {"p": p, **rates}
         results.append(point)
         if checkpoint_path:

@@ -11,6 +11,10 @@ from qcss_tpu_torch.experiments.erasure import (
     erasure_error_rate,
     erasure_phenomenological_error_rate,
 )
+from qcss_tpu_torch.experiments.injection import (
+    factory_report,
+    magic_injection_experiment,
+)
 from qcss_tpu_torch.experiments.leakage import (
     leakage_circuit_memory,
     leakage_memory_experiment,
@@ -79,11 +83,13 @@ __all__ = [
     "circuit_schedule_memory",
     "erasure_error_rate",
     "erasure_phenomenological_error_rate",
+    "factory_report",
     "fit_suppression",
     "leakage_circuit_memory",
     "leakage_memory_experiment",
     "logical_repetition_memory",
     "logical_resource_report",
+    "magic_injection_experiment",
     "memory_experiment",
     "parity_chain_memory",
     "program_stats",

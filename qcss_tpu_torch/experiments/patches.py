@@ -717,16 +717,15 @@ def _hybrid_load(model: ScheduleModel, p: float, q: float):
     return mean_d, d_max
 
 
-def _device_runner(model: ScheduleModel, batch: int, p: float, q: float,
-                   device_decoder: str, device):
-    """Build (or fetch) the sample+decode+count runner of a schedule model
-    on ``device``: ``run_reps(seed, n)`` draws n batches, rep r from
-    `sim.noise.chunk_generators`' generator r (the reference folds rep r
-    into its key), and returns the per-observable, word and unconverged
-    counts as tensors on the device. Runners live in the model's own
-    `meta` dict: same lifetime as the model, and no id() keys that could
-    alias a recycled address."""
-    per_model = model.meta.setdefault("_device_runners", {})
+def _device_step(model: ScheduleModel, batch: int, p: float, q: float,
+                 device_decoder: str, device):
+    """Build (or fetch) the sample+decode+count rep of a schedule model on
+    ``device``: ``step(generator)`` draws ``batch`` shots and returns the
+    per-observable, word and unconverged counts as tensors on the device;
+    nothing is read back. Steps live in the model's own `meta` dict: same
+    lifetime as the model, and no id() keys that could alias a recycled
+    address."""
+    per_model = model.meta.setdefault("_device_steps", {})
     ck = (batch, p, q, device_decoder, str(device))
     if ck in per_model:
         return per_model[ck]
@@ -746,18 +745,8 @@ def _device_runner(model: ScheduleModel, batch: int, p: float, q: float,
         word = (fail != 0).sum()
         return per_obs, word, (~conv).sum()
 
-    def run_reps(seed: int, n: int):
-        # every rep stays on the device: the counts accumulate there and
-        # the caller reads them once
-        acc = (torch.zeros(n_obs, dtype=torch.int64, device=device),
-               torch.zeros((), dtype=torch.int64, device=device),
-               torch.zeros((), dtype=torch.int64, device=device))
-        for gen in chunk_generators(seed, n, device):
-            acc = tuple(a + b for a, b in zip(acc, step(gen)))
-        return acc
-
-    per_model[ck] = run_reps
-    return run_reps
+    per_model[ck] = step
+    return step
 
 
 def schedule_memory_device(model: ScheduleModel, p: float,
@@ -790,9 +779,17 @@ def schedule_memory_device(model: ScheduleModel, p: float,
         raise ValueError(
             f"batch*reps = {batch * reps} would overflow the int32 "
             "device accumulators; split into multiple calls")
-    run_reps = _device_runner(model, batch, float(p), float(q),
-                              device_decoder, device)
-    po, w, b = run_reps(seed, reps)
+    step = _device_step(model, batch, float(p), float(q), device_decoder,
+                        device)
+    # rep r draws from `chunk_generators`' generator r (the reference
+    # folds rep r into its key); the counts accumulate on the device and
+    # are read once
+    po, w, b = (torch.zeros(n_obs, dtype=torch.int64, device=device),
+                torch.zeros((), dtype=torch.int64, device=device),
+                torch.zeros((), dtype=torch.int64, device=device))
+    for gen in chunk_generators(seed, reps, device):
+        dpo, dw, db = step(gen)
+        po, w, b = po + dpo, w + dw, b + db
     per_obs = po.cpu().numpy().astype(np.int64)
     word = int(w)
     bad = int(b)

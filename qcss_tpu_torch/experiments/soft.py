@@ -236,6 +236,32 @@ def _fused_soft_graph(code, p, sigma, rounds, resolution):
     return graph, w_space, base_ln
 
 
+def _soft_device_step(code, p, sigma, rounds, resolution, batch, device):
+    """The fused analog-readout pipeline's rep on ``device``:
+    ``step(generator)`` samples ``batch`` shots of the stream, turns the
+    amplitudes into per-shot weights, union-find-decodes and returns
+    (failures, all converged) as device scalars; nothing is read back."""
+    from qcss_tpu_torch.decode import device_uf
+
+    graph, w_space, base_ln = _fused_soft_graph(code, p, sigma, rounds,
+                                                resolution)
+    dg = device_uf.build_device_graph(graph, stencil=False).to(device)
+    w_space_t = torch.as_tensor(w_space.astype(np.int32), device=device)
+    h_t, lz_t = _code_tensors(code, device)
+    pow2 = torch.as_tensor(1 << np.arange(lz_t.shape[0]),
+                           dtype=torch.int32, device=device)
+
+    def step(gen):
+        dets, par, amp = _sample_soft_stream(gen, p, sigma, batch, rounds,
+                                             code.n, h_t, lz_t)
+        sw = _soft_shot_weights(amp, sigma, resolution, base_ln, w_space_t)
+        labels, conv = device_uf.decode_labels(dg, dets, shot_weights=sw)
+        par_bits = torch.sum(par.to(torch.int32) * pow2[None, :], dim=1)
+        return torch.sum(labels[0] != par_bits), torch.all(conv)
+
+    return step
+
+
 def soft_device_memory_rate(
     code,
     p: float,
@@ -258,28 +284,12 @@ def soft_device_memory_rate(
     Rep i draws from `chunk_generators(seed, reps + 2)[i]`; the last two
     generators drive two warm-up reps, and every rep is fenced by a host
     read of its count."""
-    from qcss_tpu_torch.decode import device_uf
-
     device = resolve_device(device)
     if rounds is None:
         rounds = 2 * code.t + 1
     q_eff = max(flip_prob(sigma), 1e-9)
-    graph, w_space, base_ln = _fused_soft_graph(code, p, sigma, rounds,
-                                                resolution)
-    dg = device_uf.build_device_graph(graph, stencil=False).to(device)
-    w_space_t = torch.as_tensor(w_space.astype(np.int32), device=device)
-    h_t, lz_t = _code_tensors(code, device)
-    pow2 = torch.as_tensor(1 << np.arange(lz_t.shape[0]),
-                           dtype=torch.int32, device=device)
-
-    def step(gen):
-        dets, par, amp = _sample_soft_stream(gen, p, sigma, batch, rounds,
-                                             code.n, h_t, lz_t)
-        sw = _soft_shot_weights(amp, sigma, resolution, base_ln, w_space_t)
-        labels, conv = device_uf.decode_labels(dg, dets, shot_weights=sw)
-        par_bits = torch.sum(par.to(torch.int32) * pow2[None, :], dim=1)
-        return torch.sum(labels[0] != par_bits), torch.all(conv)
-
+    step = _soft_device_step(code, p, sigma, rounds, resolution, batch,
+                             device)
     gens = chunk_generators(seed, reps + 2, device)
     # double warm-up, each fenced by a host read of its count
     int(step(gens[-1])[0])

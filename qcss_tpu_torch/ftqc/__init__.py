@@ -9,9 +9,9 @@ majority-vote measurement) on the 'unpacked' or 'packed' tableau engine or
 the 'frames' Pauli-frame engine (`engines`; the packed one measures blocks
 with K9 on the card), or with ``engine='unrolled'`` as one call of the
 protocols of `FTProtocols` (`executor`) per instruction. `flags` builds
-flag EC's CNOT orders and hook tables.
-
-Not ported yet (ROADMAP.md, queue 1): magic-state injection (`magic`).
+flag EC's CNOT orders and hook tables. `magic` holds magic-state
+distillation: the exact 15-to-1 map and cascade, its device Monte Carlo
+and the circuit-level tier on the frame engine.
 """
 
 from qcss_tpu_torch.ftqc.engines import (

@@ -61,6 +61,11 @@ from qcss_tpu_torch.sim import noise as noise_mod
 class EncodedProgram:
     """A validated FT-encoded program, executable over a batch of shots."""
 
+    #: the constructor's settings between ``code`` and ``device``, in its
+    #: order: `on` builds a program from them
+    SETTINGS = ("noise", "max_prep_attempts", "engine", "tableau",
+                "ancillas", "ec_extractions", "ec_schedule", "ec_mode")
+
     def __init__(self, raw: Program, code, noise: noise_mod.NoiseModel | None = None,
                  max_prep_attempts: int = 8, engine: str = "scheduled",
                  tableau: str = "unpacked", ancillas: str = "shared",
@@ -122,6 +127,13 @@ class EncodedProgram:
             FTProtocols(code, self.n_logical + 2, self.noise,
                         max_prep_attempts, device=self.device)
             if engine == "unrolled" else None)
+
+    def on(self, device) -> "EncodedProgram":
+        """The same program (source, code and `SETTINGS`) built to run on
+        ``device``: a new program, whatever device ``self`` runs on."""
+        return type(self)(self.raw, self.code,
+                          *(getattr(self, k) for k in self.SETTINGS),
+                          device=device)
 
     def _validate(self):
         code = self.code

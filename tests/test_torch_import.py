@@ -38,6 +38,7 @@ PORT_MODULES = [
     "qcss_tpu_torch.benchmarks.ftqc_bench",
     "qcss_tpu_torch.benchmarks.ftqc_programs",
     "qcss_tpu_torch.benchmarks.idle_bench",
+    "qcss_tpu_torch.benchmarks.magic_bench",
     "qcss_tpu_torch.benchmarks.profiling",
     "qcss_tpu_torch.benchmarks.sideinfo_bench",
     "qcss_tpu_torch.benchmarks.surgery_bench",
@@ -81,6 +82,7 @@ PORT_MODULES = [
     "qcss_tpu_torch.decode.uf",
     "qcss_tpu_torch.experiments.concatenated",
     "qcss_tpu_torch.experiments.erasure",
+    "qcss_tpu_torch.experiments.injection",
     "qcss_tpu_torch.experiments.leakage",
     "qcss_tpu_torch.experiments.logical",
     "qcss_tpu_torch.experiments.memory",
@@ -98,10 +100,13 @@ PORT_MODULES = [
     "qcss_tpu_torch.ftqc.engines",
     "qcss_tpu_torch.ftqc.executor",
     "qcss_tpu_torch.ftqc.flags",
+    "qcss_tpu_torch.ftqc.magic",
     "qcss_tpu_torch.ftqc.rewrite",
     "qcss_tpu_torch.ftqc.schedule",
     "qcss_tpu_torch.native",
     "qcss_tpu_torch.ops.cuda_gf2",
+    "qcss_tpu_torch.parallel",
+    "qcss_tpu_torch.parallel.mesh",
     "qcss_tpu_torch.ops.gf2",
     "qcss_tpu_torch.ops.gf2_torch",
     "qcss_tpu_torch.sim.cuda_measure",
@@ -250,6 +255,9 @@ COPIED_DEFS = [
                           "OP_NOP", "GATE_IDS", "circuit_depth",
                           "MacroProgram", "lower", "macro_rows"]),
     ("benchmarks/breakeven.py", ["wilson"]),
+    ("ftqc/magic.py", ["_default_code", "_check_distillable",
+                       "distillation_enumerators", "distill_exact",
+                       "distill_cascade"]),
 ]
 
 

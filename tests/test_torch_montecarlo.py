@@ -26,6 +26,7 @@ from qcss_tpu_torch.codes import families as tfam
 from qcss_tpu_torch.decode import montecarlo as tmc
 from qcss_tpu_torch.decode import multiround as tmr
 from qcss_tpu_torch.decode import sweep as tsw
+from qcss_tpu_torch.parallel import make_mesh, sharded_logical_error_rate
 
 Z999 = 3.2905
 
@@ -176,8 +177,16 @@ def test_error_rate_curve_resumes_from_checkpoint(steane, tmp_path,
 
     monkeypatch.setattr(tsw, "logical_error_rate", recompute)
     assert tsw.error_rate_curve(ct, [0.02, 0.05], **kw) == first
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsw.error_rate_curve(ct, [0.02], mesh=object(), device="cpu")
+    # with a mesh, each point is `sharded_logical_error_rate`'s (and the
+    # unsharded path, patched above to raise, is not taken)
+    mesh = make_mesh(devices=["cpu", "cpu"])
+    curve = tsw.error_rate_curve(ct, [0.02, 0.05], samples_per_point=1 << 10,
+                                 batch=1 << 9, seed=3, mesh=mesh)
+    assert curve == [
+        {"p": p, **sharded_logical_error_rate(
+            ct, p, mesh=mesh, samples=1 << 10, batch=1 << 9, seed=3 + i)}
+        for i, p in enumerate([0.02, 0.05])]
+    assert curve[1]["word_fail"] > 0 and curve[1]["samples"] == 1 << 10
 
 
 def test_entry_points_default_to_the_card(steane):
