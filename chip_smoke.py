@@ -273,6 +273,24 @@ the stencil kernel:
    K6 at the injection's shape and on the Monte Carlo's errors, and K9
    on the last block the sharded FT run measured, each against its plain
    version, timed; one JSON line `magic_mesh`;
+   main path 16, the port's last modules and its benchmark scripts (no
+   kernel of its own; K1, K2, K6 and K8 on its path): (a)
+   `gf2_torch.rref_batched` at B=4096, 64x128, the card bit for bit
+   against the CPU and against `ops.gf2.rref` on 64 matrices, and the
+   `rref_bench` row; (b) `benchmarks/threshold.py` at its defaults
+   (uniform model, d = 3..11, six p's, 2^17 shots a point, 'device-dem':
+   K1), its p=4e-3 ladder against BASELINE.md's rates by two-sample 99.9%
+   tests, its crossings beside BASELINE.md's; (c) `memory_bench.py`'s
+   default rows and `--curve --engine frames` at surface9, p=4e-3, 2^15
+   shots against BASELINE.md's 9.2e-5; (d) `error_curve.py --code
+   steane` equal to `error_rate_curve` in-process, its p=0.01 point
+   against the JAX package's recorded count; (e) `roofline.py`'s four
+   rows, every share at most 1.0; (f) `bp_bench.py --codes bb72
+   --spacetime --stream 24 --gap`; (g) `headline.py`'s JSON line on a
+   line of its own; (h) `entry()`'s forward on the card equal to the
+   CPU's and `dryrun_multichip(2)` on the card named twice; (i) the demo
+   tour (`--target 2e-4`); seconds and launches by part; one JSON line
+   `finish`;
 9. times each kernel, its plain version and (K6, K7) the dense matmul
    form at the main paths' shapes, beside each kernel's bound, checking
    each timed output against the plain version's; K9 and K2 through
@@ -491,6 +509,27 @@ MESH_PROGRAM = (1 << 15, 2e-3)        # compiled CNOT d=3: batch, p = q
 MESH_TWO_LEVEL = (3, 3, 3, 4e-3, 8192)  # d, k, rounds_l, p = q, batch
 MESH_MLD = (0.05, 1 << 16)            # Steane: p, batch
 MESH_PW = (5, 40, 4096, 4e-3)         # d, rounds, batch, p = q
+RREF_SHAPE = (4096, 64, 128)          # B, m, n: rref_bench's defaults
+RREF_HOST_CHECK = 64                  # matrices held against ops.gf2.rref
+# threshold.py at its defaults (d = 3..11, six p's, 2^17 shots a point)
+THRESHOLD_ARGS = ()
+THRESHOLD_LADDER_P = 4e-3
+# BASELINE.md:23: the p=4e-3 ladder at 131,072 shots a point (failure
+# rates, valid on any chip) and the pairwise crossings of its wider sweep
+THRESHOLD_LADDER_REF = {3: 1.15e-3, 5: 9.3e-4, 7: 2.1e-4, 9: 3.8e-5,
+                        11: 3.8e-5}
+THRESHOLD_REF_SHOTS = 131072
+THRESHOLD_REF_CROSSINGS = {"d5/d7": 0.0123, "d7/d9": 0.0136,
+                           "d9/d11": 0.0128}
+MEMORY_CURVE = ("surface9", 4e-3, 1 << 15)  # code, p_gate2, batch
+MEMORY_CURVE_REF = (3, 1 << 15)       # BASELINE.md:129: 9.2e-5 at 2^15
+# the JAX package's error_rate_curve(steane) at p=0.01 (its seed 2 there),
+# 2^20 samples in batches of 2^18, on the CPU: word failures, samples
+CURVE_REF = (1663, 1 << 20)
+BP16_ARGS = ("--codes", "bb72", "--spacetime", "--stream", "24", "--gap")
+# step 16's budget: d* = 7 (the default 1e-6 builds the d=13 schedule on
+# the host, minutes of the reference's builders)
+DEMO_ARGS = ("--target", "2e-4")
 Z999 = 3.2905
 
 
@@ -545,69 +584,16 @@ def packed(bits, device):
     return gf2_torch.words32(gf2_torch.pack_bits(bits)).to(device)
 
 
-def k1_work(duf, dg, defect):
-    """What K1's data need, counted with its plain version on the card (the
-    round loop of `device_uf._stencil_rounds`, one Jacobi sweep a call of
-    `_propagate`). The plain loop is batch-wide; K1 stops each shot when
-    it is quiet, so a round counts the shots still running in it: their
-    number, their mean live vertices (the defects and the ends of
-    saturated edges and slots), the mean and largest sweeps they take
-    (the last, changeless sweep included); and the candidate reads those
-    sweeps make over the live vertices, (2O + KB) a vertex and sweep,
-    summed over the batch. Returns (rounds, reads, packed), packed the
-    plain version's final labels."""
-    import torch
-
-    st = dg.stencil
-    B, V = defect.shape
-    O, KB = len(st.deltas), st.bmask.shape[0]
-    dev = defect.device
-    packed = duf.initial_labels(dg, B, dev)
-    sup = torch.zeros((B, O, V), dtype=torch.int32, device=dev)
-    supb = torch.zeros((B, KB, V), dtype=torch.int32, device=dev)
-    vals = tuple(torch.zeros_like(defect) for _ in st.chunks)
-    act = defect
-    rounds, reads = [], 0
-    running = (defect != 0).any(1)
-    active = bool(act.any())
-    while active and len(rounds) < dg.max_rounds:
-        sup, supb, grew = duf._grow_step(dg, packed, act, sup, supb)
-        satm, satb = duf._saturated(dg, sup, supb)
-        live = (defect != 0) | satm.any(1) | satb.any(1)
-        for o, d in enumerate(st.deltas):
-            live[:, d:] |= satm[:, o, :V - d]
-        sweeps = torch.zeros(B, dtype=torch.int64, device=dev)
-        changing = torch.ones(B, dtype=torch.bool, device=dev)
-        while bool(changing.any()):
-            packed, vals, still = duf._propagate(dg, packed, satm, satb, vals,
-                                                 cap=1)
-            sweeps += changing
-            changing &= still
-        act, _ = duf._spread(dg, duf.parity_seeds(dg, packed, defect),
-                             duf._cluster_passes(dg, packed, satm))
-        n_live = live.sum(1)[running]
-        sweeps = sweeps[running]
-        reads += int((sweeps * n_live).sum()) * (2 * O + KB)
-        rounds.append({"shots": int(running.sum()),
-                       "live_mean": float(n_live.float().mean()),
-                       "sweeps_mean": float(sweeps.float().mean()),
-                       "sweeps_max": int(sweeps.max())})
-        running &= act.any(1) & grew.any(1)
-        active = bool(act.any() & grew.any())
-    return rounds, reads, packed
-
-
-def k1_report(label, device_uf_cuda, duf, dg, defect, int_ops_per_s):
+def k1_report(label, device_uf_cuda, dg, defect, int_ops_per_s):
     """K1's launch plan and the work its data need at one shape, logged;
     returns (plan, work, bound) for the kernels line. The bound counts each
     input and output byte once (defects in, labels, activity and chunk
     words out, the edge words and chunk tables) and the candidate reads of
-    `k1_work` as integer operations."""
+    `roofline.k1_work` as integer operations."""
     from qcss_tpu_torch.benchmarks.profiling import bound
+    from qcss_tpu_torch.benchmarks.roofline import k1_graph_bytes, k1_work
 
-    st = dg.stencil
-    B, V = defect.shape
-    NC = len(st.chunks)
+    V = defect.shape[1]
     plan = device_uf_cuda.stencil_full_config(dg)
     log(f"K1 plan at {label}: {plan['shots_per_block']} shots (warps) a "
         f"block, {plan['smem_bytes']} bytes of shared memory a block "
@@ -615,7 +601,7 @@ def k1_report(label, device_uf_cuda, duf, dg, defect, int_ops_per_s):
         f"{'staged' if plan['tables_in_smem'] else 'in device memory'}), "
         f"{plan['registers']} registers, {plan['blocks_per_sm']} block(s) "
         f"an SM, {plan['form']} edge words")
-    rounds, reads, packed = k1_work(duf, dg, defect)
+    rounds, reads, packed = k1_work(dg, defect)
     k_packed = device_uf_cuda.stencil_full(dg, defect)[0]
     if not bool((k_packed == packed).all()):
         raise RuntimeError(f"K1 disagrees with the walked plain version at "
@@ -628,11 +614,8 @@ def k1_report(label, device_uf_cuda, duf, dg, defect, int_ops_per_s):
             f"{r['sweeps_mean']:.2f}" for r in rounds)
         + ", max " + " / ".join(str(r["sweeps_max"]) for r in rounds)
         + f"; {reads} candidate reads")
-    words = st.kernel_words(dg.pack_shift)[0]
-    nbytes = 4 * ((3 + NC) * B * V + words.numel() + len(st.deltas)
-                  + (st.kernel_chunk_tables.numel() if NC else 0))
     return plan, {"rounds": rounds, "candidate_reads": reads}, bound(
-        nbytes, reads, int_ops_per_s)
+        k1_graph_bytes(dg, defect), reads, int_ops_per_s)
 
 
 def _counts_of(rates: dict, n: int, keys) -> dict:
@@ -1235,7 +1218,7 @@ def path15(dev, int_ops_per_s, smi):
     label = (f"B={Bk} V={Vk} O={len(dg.stencil.deltas)} NC="
              f"{len(dg.stencil.chunks)} (ShardedFrameMemory d={d7} R={r7}, "
              f"shard 0)")
-    plan, need, bnd = k1_report(label, device_uf_cuda, duf, dg, defect,
+    plan, need, bnd = k1_report(label, device_uf_cuda, dg, defect,
                                 int_ops_per_s)
     kernels["K1"] = {
         "shape": label, "launches": total["K1"],
@@ -1339,6 +1322,250 @@ def path15(dev, int_ops_per_s, smi):
         f"{kernels['K1']['plain_ms']:.3f}), K2 {k2['ms']:.4f} ms, K9 "
         f"{row['ms']:.4f} ms at path 15's shapes: each == its plain version "
         f"({smi})")
+    return out, kernels
+
+
+def path16(dev, int_ops_per_s, smi):
+    """Main path 16, the port's last modules and its benchmark scripts: (a)
+    `gf2_torch.rref_batched` at B=4096, 64x128 on the card, bit for bit
+    against the CPU and against `ops.gf2.rref` on 64 matrices, and the
+    `rref_bench` row; (b) `benchmarks/threshold.py` (uniform model,
+    'device-dem', K1 through the fused device union-find), its p=4e-3
+    ladder against BASELINE.md's rates by two-sample 99.9% tests and its
+    crossings beside BASELINE.md's; (c) `memory_bench.py`'s default rows
+    and one `--curve --engine frames` point (surface9, p=4e-3, 2^15 shots)
+    against BASELINE.md's rate; (d) `error_curve.py --code steane` equal to
+    `error_rate_curve` in-process at its seed, its p=0.01 point against the
+    JAX package's recorded count; (e) `roofline.py`'s four rows, every
+    share at most 1.0; (f) `bp_bench.py --codes bb72 --spacetime --stream
+    24 --gap`; (g) `headline.py`'s JSON line (K6 and K8 in the Steane
+    headline, K2 and K1 in the d=11 extras); (h) `entry()`'s forward on the
+    card equal to the CPU's, `dryrun_multichip(2)` on the card named twice;
+    (i) the demo tour on the card. Returns the `finish` JSON object and
+    the kernels' path-16 entries (launches by part)."""
+    import numpy as np
+    import torch
+
+    from qcss_tpu_torch.benchmarks import (
+        bp_bench,
+        error_curve,
+        headline,
+        memory_bench,
+        roofline,
+        rref_bench,
+        threshold,
+    )
+    from qcss_tpu_torch.decode import device_sparse_cuda, device_uf_cuda
+    from qcss_tpu_torch.decode.sweep import error_rate_curve
+    from qcss_tpu_torch.entry import dryrun_multichip, entry
+    from qcss_tpu_torch.examples import demo
+    from qcss_tpu_torch.ops import cuda_gf2, gf2, gf2_torch
+    from qcss_tpu_torch.sim import cuda_measure
+
+    on_card = dev.type == "cuda"   # off the card: a rehearsal, no launches
+    out = {"card": smi}
+    seconds, launches = {}, {}
+    t_path = time.perf_counter()
+
+    def counts():
+        return {"K1": device_uf_cuda.launches,
+                "K2": device_sparse_cuda.launches,
+                "K3": device_uf_cuda.staged_launches["prop"],
+                "K4": device_uf_cuda.staged_launches["act"],
+                "K5": device_uf_cuda.staged_launches["round"],
+                "K6": cuda_gf2.launches["syndromes_packed"],
+                "K7": cuda_gf2.launches["syndromes_packed_t"],
+                "K8": cuda_gf2.launches["decode_residual_packed"],
+                "K9": cuda_measure.launches}
+
+    def zero_counts():
+        device_uf_cuda.launches = device_uf_cuda.chunk_launches = 0
+        for k in device_uf_cuda.staged_launches:
+            device_uf_cuda.staged_launches[k] = 0
+        device_sparse_cuda.launches = 0
+        for k in cuda_gf2.launches:
+            cuda_gf2.launches[k] = 0
+        cuda_measure.launches = 0
+
+    def part(name, fn):
+        """Run one part with every launch count set to 0 just before it and
+        read just after; its seconds."""
+        zero_counts()
+        t0 = time.perf_counter()
+        result = fn()
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = counts()
+        log(f"path 16 ({name}): {seconds[name]:.1f} s, launches "
+            f"{launches[name]}")
+        return result
+
+    # -- (a) batched RREF: the card against the CPU and the host rref
+    def rref():
+        B, m, n = RREF_SHAPE
+        mats = np.random.default_rng(0).integers(0, 2, size=(B, m, n),
+                                                 dtype=np.uint8)
+        card = gf2_torch.rref_batched(torch.as_tensor(mats, device=dev))
+        cpu = gf2_torch.rref_batched(torch.as_tensor(mats))
+        if not torch.equal(card.cpu(), cpu):
+            raise RuntimeError("rref_batched: the card differs from the CPU")
+        host = np.stack([gf2.rref(x) for x in mats[:RREF_HOST_CHECK]])
+        if not (cpu[:RREF_HOST_CHECK].numpy() == host).all():
+            raise RuntimeError("rref_batched differs from ops.gf2.rref")
+        row = rref_bench.run(B, (m, n), dev)
+        log(f"path 16 (a): rref_batched B={B} {m}x{n}: card == CPU, == "
+            f"ops.gf2.rref on {RREF_HOST_CHECK}; {json.dumps(row)}")
+        return row
+
+    out["rref"] = part("a_rref", rref)
+
+    # -- (b) the threshold sweep
+    def sweep():
+        rows = threshold.main(list(THRESHOLD_ARGS) + ["--device", str(dev)])
+        points, summary = rows[:-1], rows[-1]
+        ladder = {}
+        for r in points:
+            if r["p"] != THRESHOLD_LADDER_P:
+                continue
+            k_ref = round(THRESHOLD_LADDER_REF[r["d"]] * THRESHOLD_REF_SHOTS)
+            ok, spread = two_sample_ok(r["fails"], r["shots"], k_ref,
+                                       THRESHOLD_REF_SHOTS)
+            ladder[r["d"]] = {"fails": r["fails"], "shots": r["shots"],
+                              "ref_fails": k_ref, "allowed": spread,
+                              "ok": ok}
+            log(f"path 16 (b): d={r['d']} p={r['p']}: {r['fails']} of "
+                f"{r['shots']} ({r['logical_fail']:.3e}) against "
+                f"BASELINE.md's {THRESHOLD_LADDER_REF[r['d']]:.2e} "
+                f"({k_ref} of {THRESHOLD_REF_SHOTS}): "
+                f"{'within' if ok else 'OUTSIDE'} two-sample 99.9%")
+            if not ok:
+                raise RuntimeError(f"threshold ladder at d={r['d']} outside "
+                                   f"BASELINE.md's rate")
+        if sorted(ladder) != sorted(THRESHOLD_LADDER_REF):
+            raise RuntimeError(f"threshold ladder incomplete: {ladder}")
+        log(f"path 16 (b): pairwise crossings {summary['pairwise_crossings']}"
+            f" (p_th {summary['p_th']}); BASELINE.md's "
+            f"{THRESHOLD_REF_CROSSINGS} (its sweep ran to higher p)")
+        return {"args": list(THRESHOLD_ARGS), "points": points,
+                "summary": summary, "ladder": ladder,
+                "baseline_crossings": THRESHOLD_REF_CROSSINGS}
+
+    out["threshold"] = part("b_threshold", sweep)
+    if on_card and launches["b_threshold"]["K1"] <= 0:
+        raise RuntimeError("the threshold sweep did not launch K1")
+
+    # -- (c) the memory bench: default rows and one curve point
+    def memory():
+        rows = memory_bench.main(["--device", str(dev)])
+        name, p, batch = MEMORY_CURVE
+        curve = memory_bench.main([
+            "--curve", "--codes", name, "--ps", str(p), "--batch",
+            str(batch), "--engine", "frames", "--device", str(dev)])
+        for r in rows + curve:
+            if not 0.0 <= r["logical_fail"] <= 1.0:
+                raise RuntimeError(f"memory_bench row out of range: {r}")
+        k = round(curve[0]["logical_fail"] * batch)
+        ok, spread = two_sample_ok(k, batch, *MEMORY_CURVE_REF)
+        log(f"path 16 (c): {name} p={p}: {k} of {batch} against "
+            f"BASELINE.md's {MEMORY_CURVE_REF[0]} of {MEMORY_CURVE_REF[1]} "
+            f"(9.2e-5): {'within' if ok else 'OUTSIDE'} two-sample 99.9%")
+        if not ok:
+            raise RuntimeError("memory curve point outside BASELINE.md's rate")
+        return {"rows": rows, "curve": curve, "curve_fails": k}
+
+    out["memory_bench"] = part("c_memory_bench", memory)
+
+    # -- (d) the error curve against error_rate_curve and the JAX package
+    def curve():
+        rows = error_curve.main(["--code", "steane", "--device", str(dev)])
+        ps = [r["p"] for r in rows]
+        again = error_rate_curve(error_curve.CODES["steane"](), ps,
+                                 samples_per_point=1 << 20, batch=1 << 18,
+                                 seed=0, device=dev)
+        if [{k: r[k] for k in a} for r, a in zip(rows, again)] != again:
+            raise RuntimeError("error_curve.py differs from error_rate_curve")
+        point = next(r for r in rows if r["p"] == 0.01)
+        k = round(point["word_fail"] * point["samples"])
+        ok, spread = two_sample_ok(k, point["samples"], *CURVE_REF)
+        log(f"path 16 (d): error_curve == error_rate_curve at seed 0; p=0.01 "
+            f"word failures {k} of {point['samples']} against the JAX "
+            f"package's {CURVE_REF[0]} of {CURVE_REF[1]}: "
+            f"{'within' if ok else 'OUTSIDE'} two-sample 99.9%")
+        if not ok:
+            raise RuntimeError("error curve p=0.01 outside the JAX package's")
+        return {"rows": rows, "jax_ref": CURVE_REF}
+
+    out["error_curve"] = part("d_error_curve", curve)
+
+    # -- (e) the roofline (raises on a share above 1.0)
+    def roof():
+        rows = roofline.run(int_ops_per_s)
+        for r in rows:
+            log(f"path 16 (e): {json.dumps(r)}")
+        return rows
+
+    out["roofline"] = part("e_roofline", roof)
+
+    # -- (f) bp_bench's spacetime, stream and gap rows
+    out["bp_bench"] = part("f_bp_bench", lambda: bp_bench.main(
+        list(BP16_ARGS) + ([] if dev.type == "cuda" else ["--cpu"])))
+
+    # -- (g) the headline line (printed here, well before the last line)
+    def head():
+        row = headline.run(dev)
+        print(json.dumps(row), flush=True)
+        return row
+
+    out["headline"] = part("g_headline", head)
+    if on_card and min(launches["g_headline"][k]
+                       for k in ("K1", "K2", "K6", "K8")) <= 0:
+        raise RuntimeError(f"the headline missed a kernel: "
+                           f"{launches['g_headline']}")
+
+    # -- (h) the entry points: entry()'s forward (K8 then K6 a sector), then
+    #    the dry run on the card named twice
+    def forward():
+        fwd, args = entry(dev)
+        card = {k: int(v) for k, v in fwd(*args).items()}
+        fwd_c, args_c = entry("cpu")
+        cpu = {k: int(v) for k, v in fwd_c(*args_c).items()}
+        if card != cpu:
+            raise RuntimeError(f"entry(): card {card} != CPU {cpu}")
+        log(f"path 16 (h): entry() forward on the card == CPU {card}")
+        return card
+
+    out["entry"] = part("h_entry", forward)
+    out["dryrun"] = part("h_dryrun", lambda: dryrun_multichip(
+        2, devices=[dev, dev]))
+    log(f"path 16 (h): dryrun_multichip(2) on the card named twice: "
+        f"{sorted(out['dryrun'])}")
+    if on_card and (min(launches["h_entry"][k] for k in ("K6", "K8")) < 2
+                    or min(launches["h_dryrun"][k] for k in ("K1", "K2"))
+                    <= 0):
+        raise RuntimeError(f"the entry points missed a kernel: "
+                           f"{launches['h_entry']}, {launches['h_dryrun']}")
+
+    # -- (i) the demo tour
+    part("i_demo", lambda: demo.main(
+        list(DEMO_ARGS) + ([] if dev.type == "cuda" else ["--cpu"])))
+
+    total = {k: sum(v[k] for v in launches.values())
+             for k in launches["a_rref"]}
+    if on_card and (total["K1"] <= 0 or total["K2"] <= 0):
+        raise RuntimeError(f"path 16 did not launch K1 and K2: {total}")
+    out["seconds"] = seconds
+    out["launches"] = launches
+    out["wall_s"] = time.perf_counter() - t_path
+    log(f"path 16 wall {out['wall_s']:.1f} s ({smi}); launches {total}")
+    kernels = {k: {"launches": total[k],
+                   "by_part": {p: v[k] for p, v in launches.items()}}
+               for k in total}
+    # K1 and K2 held against their plain versions at (e)'s shapes (the
+    # walked plain K1, `measure_sparse_bench.k2_row`), timed and bounded
+    for row in out["roofline"]:
+        key = {"uf_mosaic_full": "K1", "sparse_fetch": "K2"}.get(
+            row.get("kernel"))
+        if key:
+            kernels[key]["roofline"] = row
     return out, kernels
 
 
@@ -2288,7 +2515,7 @@ def path10(dev, int_ops_per_s):
     k1_ms = cuda_ms(lambda: device_uf_cuda.stencil_full(dg, defect), 10)
     k1_plain_ms = cuda_ms(lambda: duf._stencil_plain(dg, defect), 1)
     plan, need, bnd = k1_report(f"{label} (parity chain d={d_hi})",
-                                device_uf_cuda, duf, dg, defect,
+                                device_uf_cuda, dg, defect,
                                 int_ops_per_s)
     log(f"K1 at the parity chain's d={d_hi} shape {label}, deltas "
         f"{dg.stencil.deltas}: == plain (packed, act, obs, converged) on "
@@ -2689,7 +2916,7 @@ def path11(dev, int_ops_per_s):
     k1_ms = cuda_ms(lambda: device_uf_cuda.stencil_full(dg2, defect), 20)
     k1_plain_ms = cuda_ms(lambda: duf._stencil_plain(dg2, defect), 2)
     plan, need, bnd = k1_report(f"{label} (two-level memory, level 2)",
-                                device_uf_cuda, duf, dg2, defect,
+                                device_uf_cuda, dg2, defect,
                                 int_ops_per_s)
     log(f"K1 on the level-2 graph {label}, deltas {dg2.stencil.deltas}: == "
         f"plain (packed, act, labels, converged) on the device run's rep 0 "
@@ -3485,6 +3712,7 @@ def path14(dev, int_ops_per_s, smi):
 
 
 def main() -> int:
+    t_script = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -4085,6 +4313,12 @@ def main() -> int:
     #    twice (K1, K2, K6, K8, K9 on their paths)
     magic_mesh, mesh_kernels = path15(dev, int_ops_per_s, smi)
 
+    # -- 8n. main path 16: the port's last modules and benchmark scripts
+    #    (batched RREF, threshold, memory bench, error curve, roofline,
+    #    bp_bench's spacetime/stream/gap rows, the headline line, the entry
+    #    points and the dry run, the demo); K1, K2, K6, K8 on its path
+    finish, finish_kernels = path16(dev, int_ops_per_s, smi)
+
     # -- 9. kernel and plain-version times at the main paths' shapes
     defect_big = duf.stencil_defect(dg, dets_big)
     k1_ms = cuda_ms(lambda: device_uf_cuda.stencil_full(dg, defect_big), 20)
@@ -4099,7 +4333,7 @@ def main() -> int:
                                       f"at B={BATCH}", converged=False)[0])
     V1 = defect_big.shape[1]
     k1_plan, k1_need, k1_bound = k1_report(
-        f"B={BATCH} V={V1} NC=0", device_uf_cuda, duf, dg, defect_big,
+        f"B={BATCH} V={V1} NC=0", device_uf_cuda, dg, defect_big,
         int_ops_per_s)
     # K2 (benchmarks/measure_sparse_bench.py): checked against its plain
     # version, timed through its wrapper and as a launch in a CUDA graph
@@ -4143,7 +4377,7 @@ def main() -> int:
     Vw = wdef.shape[1]
     NCw = len(mid.stencil.chunks)
     k1w_plan, k1w_need, k1w_bound = k1_report(
-        f"B={STREAM_BATCH} V={Vw} NC={NCw}", device_uf_cuda, duf, mid, wdef,
+        f"B={STREAM_BATCH} V={Vw} NC={NCw}", device_uf_cuda, mid, wdef,
         int_ops_per_s)
     log(f"K1 stencil with chunks B={STREAM_BATCH} V={Vw} NC={NCw}: kernel "
         f"{k1w_ms:.4f} ms ({k1w_zero_ms:.4f} ms on all-zero detectors), "
@@ -4172,7 +4406,7 @@ def main() -> int:
     Vp, NCp = pdef.shape[1], len(pmid.stencil.chunks)
     k1p_label = f"B={pdef.shape[0]} V={Vp} NC={NCp}"
     k1p_plan, k1p_need, k1p_bound = k1_report(
-        k1p_label, device_uf_cuda, duf, pmid, pdef, int_ops_per_s)
+        k1p_label, device_uf_cuda, pmid, pdef, int_ops_per_s)
     log(f"K1 stencil at the parallel window's d={D} interior shape "
         f"{k1p_label}: kernel {k1p_ms:.4f} ms, plain {k1p_plain_ms:.3f} ms, "
         f"bound {k1p_bound[0]:.4f} ms ({k1p_bound[1]})")
@@ -4350,10 +4584,14 @@ def main() -> int:
     print(json.dumps({"ftqc_frames": ftqc_frames}), flush=True)
     print(json.dumps({"ftqc_rest": ftqc_rest}), flush=True)
     print(json.dumps({"magic_mesh": magic_mesh}), flush=True)
+    print(json.dumps({"finish": finish},
+                     default=lambda o: o.item() if hasattr(o, "item")
+                     else str(o)), flush=True)
     k9_entry["ftqc"] = k9_ftqc
     k9_entry["ftqc_frames"] = {"launches": ftqc_frames["k9_launches"]}
     k9_entry["ftqc_rest"] = k9_rest
     k9_entry["magic_mesh"] = mesh_kernels["K9"]
+    k9_entry["finish"] = finish_kernels["K9"]
     print(json.dumps({"kernels": [
         {"name": "uf_stencil_full", "route": "cuda",
          "source": "qcss_tpu_torch/csrc/uf_stencil_full.cu",
@@ -4392,22 +4630,23 @@ def main() -> int:
                         for arm, row in rows.items()}},
          "surgery": surgery_kernels["K1"],
          "logical": logical_kernels["K1"],
-         "magic_mesh": mesh_kernels["K1"]},
+         "magic_mesh": mesh_kernels["K1"],
+         "finish": finish_kernels["K1"]},
         {"name": "uf_stencil_prop", "route": "cuda",
          "source": "qcss_tpu_torch/csrc/uf_stencil_staged.cu",
          "replaces": "qcss_tpu/decode/device_uf_pallas.py:74",
          "launches": n_staged["prop"], "max_abs_err": k3_err,
-         **staged["K3"]},
+         **staged["K3"], "finish": finish_kernels["K3"]},
         {"name": "uf_stencil_act", "route": "cuda",
          "source": "qcss_tpu_torch/csrc/uf_stencil_staged.cu",
          "replaces": "qcss_tpu/decode/device_uf_pallas.py:149",
          "launches": n_staged["act"], "max_abs_err": k4_err,
-         **staged["K4"]},
+         **staged["K4"], "finish": finish_kernels["K4"]},
         {"name": "uf_stencil_round", "route": "cuda",
          "source": "qcss_tpu_torch/csrc/uf_stencil_staged.cu",
          "replaces": "qcss_tpu/decode/device_uf_pallas.py:193",
          "launches": n_staged["round"], "max_abs_err": k5_err,
-         **staged["K5"]},
+         **staged["K5"], "finish": finish_kernels["K5"]},
         {"name": "sparse_growth", "route": "cuda",
          "source": "qcss_tpu_torch/csrc/sparse_growth.cu",
          "replaces": "qcss_tpu/decode/device_sparse.py:395",
@@ -4421,24 +4660,29 @@ def main() -> int:
              "plan")},
          "surgery": surgery_kernels["K2"],
          "logical": logical_kernels["K2"],
-         "magic_mesh": mesh_kernels["K2"]},
+         "magic_mesh": mesh_kernels["K2"],
+         "finish": finish_kernels["K2"]},
         {"name": "syndromes_packed", "route": "cuda",
          "source": "qcss_tpu_torch/csrc/gf2_packed.cu",
          "replaces": "qcss_tpu/ops/pallas_gf2.py:51",
          "launches": n_k6, "max_abs_err": k6_err, **times["K6"],
-         "library_note": lib_note, "magic_mesh": mesh_kernels["K6"]},
+         "library_note": lib_note, "magic_mesh": mesh_kernels["K6"],
+         "finish": finish_kernels["K6"]},
         {"name": "syndromes_packed_t", "route": "cuda",
          "source": "qcss_tpu_torch/csrc/gf2_packed.cu",
          "replaces": "qcss_tpu/ops/pallas_gf2.py:107",
          "launches": n_k7, "max_abs_err": k7_err, **times["K7"],
-         "library_note": lib_note},
+         "library_note": lib_note, "finish": finish_kernels["K7"]},
         {"name": "decode_residual_packed", "route": "cuda",
          "source": "qcss_tpu_torch/csrc/gf2_packed.cu",
          "replaces": "qcss_tpu/ops/pallas_gf2.py:156",
          "launches": n_k8, "max_abs_err": k8_err, **times["K8"],
-         "magic_mesh": mesh_kernels["K8"]},
+         "magic_mesh": mesh_kernels["K8"],
+         "finish": finish_kernels["K8"]},
         k9_entry,
     ]}), flush=True)
+    log(f"chip_smoke.py: {time.perf_counter() - t_script:.1f} s in all, "
+        f"path 16 {finish['wall_s']:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -146,3 +146,41 @@ def xor_reduce(x: torch.Tensor) -> torch.Tensor:
         head = x[..., :half] ^ x[..., half:2 * half]
         x = torch.cat([head, x[..., 2 * half:]], dim=-1) if n % 2 else head
     return x[..., 0]
+
+
+def rref_batched(mats: torch.Tensor) -> torch.Tensor:
+    """Reduced row echelon form over GF(2) for a batch of dense 0/1
+    matrices, on the tensor's own device.
+
+    mats: [B, m, n] 0/1 (values are read mod 2); returns [B, m, n] uint8.
+    The reference's branch-free column sweep (gf2_jax.rref_batched): at
+    each column the first row >= r with a 1 is the pivot, added into row
+    r where row r has a 0 there, then every other row with a 1 in the
+    column gets row r added, and r advances where a pivot was found. The
+    same canonical form as `ops.gf2.rref`. The rows are bools, so no
+    integer arithmetic can wrap; the pivot is the least row index over
+    the masked column (the first 1, as `jnp.argmax` picks it).
+    """
+    mat = (mats.to(torch.uint8) & 1).to(torch.bool)
+    B, m, n = mat.shape
+    dev = mat.device
+    rows = torch.arange(m, device=dev)
+    shots = torch.arange(B, device=dev)
+    r = torch.zeros(B, dtype=torch.int64, device=dev)
+    for c in range(n):
+        col = mat[:, :, c]
+        masked = col & (rows[None, :] >= r[:, None])
+        has_pivot = masked.any(dim=1)
+        pivot = torch.where(masked, rows[None, :], m).amin(dim=1)
+        # r and the pivot are m where no row is left: clamp the reads,
+        # which `has_pivot` then masks out
+        r_at = r.clamp(max=m - 1)
+        prow = mat[shots, pivot.clamp(max=m - 1)]
+        need_add = has_pivot & ~col[shots, r_at]
+        mat[shots, r_at] = mat[shots, r_at] ^ (prow & need_add[:, None])
+        rrow = mat[shots, r_at]
+        elim = mat[:, :, c] & (rows[None, :] != r[:, None]) \
+            & has_pivot[:, None]
+        mat ^= elim[:, :, None] & rrow[:, None, :]
+        r = r + has_pivot.to(torch.int64)
+    return mat.to(torch.uint8)

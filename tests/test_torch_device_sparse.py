@@ -8,6 +8,7 @@ package runs on the CPU with ``backend='xla'`` — the same trace its Mosaic
 kernel runs (tests/test_device_sparse.py holds the two bit-identical).
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -29,6 +30,15 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _quick_reference_compiles():
+    # integer reference programs: see test_torch_device_uf.py
+    saved = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", saved)
 
 
 def _graph(kind, d):

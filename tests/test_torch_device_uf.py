@@ -9,6 +9,7 @@ drawn with numpy under fixed seeds and handed to both packages.
 
 from itertools import combinations
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -30,6 +31,17 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _quick_reference_compiles():
+    # The JAX package's decoders here are integer programs, compiled once a
+    # test on the CPU; XLA's optimisation passes take about half of each
+    # compile and change none of the bits the tests compare.
+    saved = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", saved)
 
 
 def _graph(kind, d):

@@ -39,6 +39,15 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _quick_reference_compiles():
+    # integer reference programs: see test_torch_device_uf.py
+    saved = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", saved)
+
+
 def _port_graph(g):
     return tuf.MatchingGraph(
         num_nodes=g.num_nodes, edges=g.edges, edge_qubit=g.edge_qubit,

@@ -38,6 +38,15 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _quick_reference_compiles():
+    # the reference programs compared here: see test_torch_device_uf.py
+    saved = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", saved)
+
+
 def key_bits(key, batch, m):
     """The [B, M] collapse bits a JAX measure_many/reset_many draws from
     ``key``, as `qcss_tpu.sim.pallas_measure.measure_many_fused` derives

@@ -29,6 +29,7 @@ detection order and `reference_outcomes`' determinism check.
 import math
 from types import SimpleNamespace
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -69,6 +70,15 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _quick_reference_compiles():
+    # the reference programs compared here: see test_torch_device_uf.py
+    saved = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", saved)
 
 
 def _two_sample_ok(k1, n1, k2, n2):

@@ -33,13 +33,18 @@ PORT_MODULES = [
     "qcss_tpu_torch.benchmarks.breakeven",
     "qcss_tpu_torch.benchmarks.breakeven_probe",
     "qcss_tpu_torch.benchmarks.device_uf_bench",
+    "qcss_tpu_torch.benchmarks.error_curve",
     "qcss_tpu_torch.benchmarks.fidelity",
     "qcss_tpu_torch.benchmarks.flag_bench",
     "qcss_tpu_torch.benchmarks.ftqc_bench",
     "qcss_tpu_torch.benchmarks.ftqc_programs",
+    "qcss_tpu_torch.benchmarks.headline",
     "qcss_tpu_torch.benchmarks.idle_bench",
     "qcss_tpu_torch.benchmarks.magic_bench",
+    "qcss_tpu_torch.benchmarks.memory_bench",
     "qcss_tpu_torch.benchmarks.profiling",
+    "qcss_tpu_torch.benchmarks.roofline",
+    "qcss_tpu_torch.benchmarks.rref_bench",
     "qcss_tpu_torch.benchmarks.sideinfo_bench",
     "qcss_tpu_torch.benchmarks.surgery_bench",
     "qcss_tpu_torch.benchmarks.pw_bench",
@@ -48,6 +53,7 @@ PORT_MODULES = [
     "qcss_tpu_torch.benchmarks.stream_bench",
     "qcss_tpu_torch.benchmarks.syndrome_sweep",
     "qcss_tpu_torch.benchmarks.tableau_bench",
+    "qcss_tpu_torch.benchmarks.threshold",
     "qcss_tpu_torch.benchmarks.uf_bench",
     "qcss_tpu_torch.circuits",
     "qcss_tpu_torch.codes",
@@ -80,6 +86,8 @@ PORT_MODULES = [
     "qcss_tpu_torch.decode.streaming",
     "qcss_tpu_torch.decode.sweep",
     "qcss_tpu_torch.decode.uf",
+    "qcss_tpu_torch.entry",
+    "qcss_tpu_torch.examples.demo",
     "qcss_tpu_torch.experiments.concatenated",
     "qcss_tpu_torch.experiments.erasure",
     "qcss_tpu_torch.experiments.injection",
@@ -115,6 +123,7 @@ PORT_MODULES = [
     "qcss_tpu_torch.sim.statevec",
     "qcss_tpu_torch.sim.tableau",
     "qcss_tpu_torch.sim.tableau_packed",
+    "qcss_tpu_torch.utils.profiling",
 ]
 
 
@@ -255,6 +264,8 @@ COPIED_DEFS = [
                           "OP_NOP", "GATE_IDS", "circuit_depth",
                           "MacroProgram", "lower", "macro_rows"]),
     ("benchmarks/breakeven.py", ["wilson"]),
+    ("benchmarks/threshold.py", ["wilson", "make_noise", "crossings"]),
+    ("utils/profiling.py", ["Throughput"]),
     ("ftqc/magic.py", ["_default_code", "_check_distillable",
                        "distillation_enumerators", "distill_exact",
                        "distill_cascade"]),

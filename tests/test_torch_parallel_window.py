@@ -14,6 +14,7 @@
   must fall inside the 99.9% Wilson interval of the reference's.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -33,6 +34,15 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _quick_reference_compiles():
+    # integer reference programs: see test_torch_device_uf.py
+    saved = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", saved)
 
 
 def _code(d):

@@ -14,6 +14,7 @@ as zero. Rates are held against the reference's sampler by two-sample
 
 import math
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -49,6 +50,15 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _quick_reference_compiles():
+    # the reference programs compared here: see test_torch_device_uf.py
+    saved = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", saved)
 
 
 @pytest.fixture(scope="module")

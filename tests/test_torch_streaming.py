@@ -12,6 +12,7 @@ failure rates are held together by a two-sample 99.9% test.
 import math
 from functools import partial
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -37,6 +38,15 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _quick_reference_compiles():
+    # integer reference programs: see test_torch_device_uf.py
+    saved = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", saved)
 
 
 def _code(d):

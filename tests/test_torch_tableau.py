@@ -35,6 +35,15 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _quick_reference_compiles():
+    # the reference programs compared here: see test_torch_device_uf.py
+    saved = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", saved)
+
+
 def random_circuit(rng, n, depth):
     circ = Circuit()
     for _ in range(depth):
